@@ -1,0 +1,183 @@
+"""The per-frame HE-AAC v2 device graph and the whole-stream scan.
+
+Counterpart: ``heaac_tpu/codec/heaac_graph.py`` — HeaacState/init_state,
+heaac_frame (is34=0, downsampled=0, with the ps_on gate and the PS state
+freeze), init_qwire_carry, heaac_frame_qwire, _qwire_decode_all_coeffs
+(MS=0) and qwire_scan_decoder.  One frame for B lanes: core IMDCT /
+overlap-add -> QMF analysis -> SBR HF reconstruction -> parametric
+stereo -> QMF synthesis.  The scan is a Python loop over T frames that
+rounds to int16 inside the loop.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import ps, sbr, spec_huff
+from ..ops.qmf import qmf_analysis, qmf_synthesis
+from . import compact_plan, qwire
+from .core import consts as core_consts
+from .core import core_frame
+from ..host import R_TOKOFF, R_W1, R_W2, R_W3
+
+
+class HeaacState(NamedTuple):
+    saved: torch.Tensor       # [B,512]   core overlap
+    x_hist: torch.Tensor      # [B,288]   QMF analysis history
+    W_prev: torch.Tensor      # [B,32,32,2]
+    Y_prev: torch.Tensor      # [B,38,64,2]
+    g_temp: torch.Tensor      # [B,42,48]
+    q_temp: torch.Tensor      # [B,42,48]
+    v0: torch.Tensor          # [B,9,128] synthesis FIFO L
+    v1: torch.Tensor          # [B,9,128] synthesis FIFO R
+    ps_in_buf: torch.Tensor   # [B,5,6,2]
+    ps_delay: torch.Tensor    # [B,91,14,2]
+    ps_ap: torch.Tensor       # [B,50,3,5,2] (20-band uses rows :30)
+    ps_trans: torch.Tensor    # [B,34,3]
+
+
+STATE_SHAPES = dict(
+    saved=(512,), x_hist=(288,), W_prev=(32, 32, 2), Y_prev=(38, 64, 2),
+    g_temp=(42, 48), q_temp=(42, 48), v0=(9, 128), v1=(9, 128),
+    ps_in_buf=(5, 6, 2), ps_delay=(91, 14, 2), ps_ap=(50, 3, 5, 2),
+    ps_trans=(34, 3))
+
+
+def init_state(B: int, device) -> HeaacState:
+    return HeaacState(**{
+        k: torch.zeros((B,) + s, dtype=torch.float32, device=device)
+        for k, s in STATE_SHAPES.items()})
+
+
+def _require_static(is34: int, downsampled: int) -> None:
+    if is34 or downsampled:
+        raise NotImplementedError(
+            "only 20-band PS at full-rate synthesis (is34=0, "
+            "downsampled=0) is ported")
+
+
+def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
+                downsampled: int = 0):
+    """One frame for B mono HE-AACv2 lanes -> (pcm [B,2,2048] f32,
+    new state)."""
+    _require_static(is34, downsampled)
+    m2048, m256, bank = core_consts(state.saved.device)
+    time_out, saved = core_frame(core["coeffs"], state.saved, core["ws"],
+                                 core["wsp"], core["kbd"], core["kbdp"],
+                                 m2048, m256, bank)
+    W, x_hist = qmf_analysis(time_out, state.x_hist)
+    X_low = sbr.lf_gen(state.W_prev, W, plan["xlow_new"], plan["xlow_old"])
+    alpha0, alpha1 = sbr.hf_inverse_filter(X_low)
+    X_high = sbr.hf_gen(X_low, alpha0, alpha1, plan["src_of_m"],
+                        plan["bw_of_m"], plan["hf_mask"],
+                        plan["gen_slot_mask"])
+    e_curr = sbr.env_estimate(X_high, plan["env_onehot"], plan["recip"],
+                              plan["grp_mean"], plan["freqres_sel"])
+    gain, q_m, s_m = sbr.gain_calc(e_curr, plan)
+    Y_m, env_on, g_temp, q_temp = sbr.hf_assemble(
+        X_high, gain, q_m, s_m, state.g_temp, state.q_temp, plan)
+    X, y_cur = sbr.x_gen(X_low, Y_m, state.Y_prev, env_on, plan)
+
+    lbuf, ps_in_buf = ps.hybrid_analysis(X, state.ps_in_buf)
+    ps_state = dict(delay=state.ps_delay, ap=state.ps_ap,
+                    trans=state.ps_trans)
+    lmix, rmix, ps_new = ps.decorrelate_and_mix(lbuf, ps_state, ps_plan)
+    Lp = ps.hybrid_synthesis(lmix)
+    Rp = ps.hybrid_synthesis(rmix)
+    on = ps_plan["ps_on"] > 0
+    Lx = torch.where(on[:, None, None, None], Lp, X)
+    Rx = torch.where(on[:, None, None, None], Rp, X)
+
+    def keep(new, old):
+        """PS state freezes when inactive (the reference never calls
+        ff_ps_apply)."""
+        return torch.where(on.reshape((-1,) + (1,) * (new.dim() - 1)), new,
+                           old)
+
+    pcm0, v0 = qmf_synthesis(Lx, state.v0)
+    pcm1, v1 = qmf_synthesis(Rx, state.v1)
+    new_state = HeaacState(
+        saved=saved, x_hist=x_hist, W_prev=W, Y_prev=y_cur, g_temp=g_temp,
+        q_temp=q_temp, v0=v0, v1=v1,
+        ps_in_buf=keep(ps_in_buf, state.ps_in_buf),
+        ps_delay=keep(ps_new["delay"], state.ps_delay),
+        ps_ap=keep(ps_new["ap"], state.ps_ap),
+        ps_trans=keep(ps_new["trans"], state.ps_trans))
+    return torch.stack([pcm0, pcm1], 1), new_state
+
+
+def init_qwire_carry(B: int, device):
+    """(HeaacState, ps_hist, qwire carry) of B fresh lanes."""
+    return (init_state(B, device), compact_plan.init_ps_hist(B, device),
+            qwire.init_qcarry(B, device))
+
+
+def heaac_frame_qwire(coeffs, rec, heap, carry, is34: int = 0,
+                      downsampled: int = 0, rows_pair: int = 0):
+    """One frame from the quantized wire format: rec [B,REC_W] int,
+    heap [N] int byte values, coeffs [B,1024] -> (pcm, new carry)."""
+    state, ph, qc = carry
+    core_meta, plan, pc, qc2 = qwire.expand_frame(heap, rec, qc, is34,
+                                                  rows_pair)
+    ps_plan, ph2 = compact_plan.expand_ps(pc, ph, is34)
+    core = dict(coeffs=coeffs, **core_meta)
+    pcm, state2 = heaac_frame(core, plan, ps_plan, state, is34, downsampled)
+    return pcm, (state2, ph2, qc2)
+
+
+CHUNK_ROWS = 4096    # frame-lanes per decode pass of the scan prologue
+
+
+def decode_all_coeffs(heap, rec_seq, S: int, rate_idx: int, NB: int,
+                      MS: int = 0, NS: int = 52, SEC: int = 31):
+    """Scan prologue (_qwire_decode_all_coeffs, MS=0): token decode — plus
+    the raw-bits spectral decode of mode-1 lanes when NB > 0 — of every
+    frame-lane at once, CHUNK_ROWS flattened rows at a time to bound the
+    [rows, NB] working set.  heap [N] byte values (any int dtype),
+    rec_seq [T, L, REC_W] -> (heap int64, rec_seq int64,
+    coeffs [T, L, 1024])."""
+    if MS:
+        raise NotImplementedError("device M/S (MS=1) is not ported")
+    heap = heap.long()
+    rec_seq = rec_seq.long()
+    T, L = rec_seq.shape[:2]
+    flat = rec_seq.transpose(0, 1).reshape(L * T, rec_seq.shape[2])
+    parts = []
+    for r0 in range(0, L * T, CHUNK_ROWS):
+        f = flat[r0:r0 + CHUNK_ROWS]
+        c = qwire.decode_coeffs(heap, f[:, R_TOKOFF], f[:, R_W1] & 0xFFFF, S)
+        if NB > 0:
+            mode1 = ((f[:, R_W2] >> 24) & 15) == 1
+            spec = spec_huff.decode_spec(heap, f[:, R_TOKOFF],
+                                         f[:, R_W3] * mode1, rate_idx, NB,
+                                         NS=NS, SEC=SEC)
+            c = torch.where(mode1[:, None], spec, c)
+        parts.append(c)
+    coeffs = torch.cat(parts, 0).reshape(L, T, 1024).transpose(0, 1)
+    return heap, rec_seq, coeffs
+
+
+def to_int16(pcm):
+    """clip(rint(x)) to int16; torch.round rounds half to even like
+    jnp.rint."""
+    return torch.clamp(torch.round(pcm), -32768, 32767).to(torch.int16)
+
+
+def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
+                      S: int, rate_idx: int = -1, NB: int = 0, MS: int = 0,
+                      NS: int = 52, SEC: int = 31, rows_pair: int = 0):
+    """qwire_scan_decoder's run: decode every frame's coefficients in one
+    parallel pass, then step the frame graph over the T frames.  heap is
+    the byte heap, rec_seq [T, L, REC_W] the records -> (carry,
+    pcm int16 [T, L, 2, 2048])."""
+    _require_static(is34, downsampled)
+    heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S, rate_idx,
+                                              NB, MS, NS, SEC)
+    T, L = rec_seq.shape[:2]
+    pcm = torch.empty((T, L, 2, 2048), dtype=torch.int16, device=heap.device)
+    for t in range(T):
+        out, carry = heaac_frame_qwire(coeffs[t], rec_seq[t], heap, carry,
+                                       is34, downsampled, rows_pair)
+        pcm[t] = to_int16(out)
+    return carry, pcm

@@ -1,0 +1,121 @@
+"""Shared helpers of the PyTorch-port parity tests (no tests here).
+
+Inputs are made with numpy (from a seed, or parsed from the bundled
+benchdata streams) and handed to both the JAX function and its port.
+"""
+import ctypes
+import functools
+import gc
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _drop_compiled_jax():
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_memory():
+    """Drop compiled XLA:CPU executables before and after each parity
+    module (import this fixture into the module). The reference graphs
+    these modules compile take a few GB, and a pytest-xdist worker keeps
+    every executable it has compiled until it exits; without this the
+    whole suite's workers can outgrow the host's memory."""
+    _drop_compiled_jax()
+    yield
+    _drop_compiled_jax()
+
+
+def bench_streams(n: int) -> list:
+    return [open(os.path.join(REPO, "benchdata",
+                              f"heaac_bench_stream_{i % 8}.aac"), "rb").read()
+            for i in range(n)]
+
+
+@functools.cache
+def port_parse(n: int, T: int) -> dict:
+    """Native parse of benchdata streams 0..n-1 (first T frames) through
+    the port: heap bytes, records [T, n, 4] and the static decode sizes."""
+    from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+    streams = bench_streams(n)
+    dec = QwirePipelinedDecoder(streams, group_streams=n, max_frames=T)
+    heap, cur, recs = dec._parse_group(streams, 0, T)
+    return dict(heap=heap[:cur + 4096].copy(), recs=recs[:T].copy(),
+                S=dec.S, NB=dec.NB, NS=dec.NS, SEC=dec.SEC,
+                rate_idx=dec.rate_idx)
+
+
+def t(a, dtype=None):
+    """numpy -> CPU tensor: floats as float32, integers as int64."""
+    a = np.asarray(a)
+    if dtype is None:
+        dtype = torch.float32 if a.dtype.kind == "f" else torch.int64
+    return torch.from_numpy(np.array(a)).to(dtype)
+
+
+def n(x):
+    """tensor / jax array / nested dict -> numpy."""
+    if isinstance(x, dict):
+        return {k: n(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_exact(got, want, what="", float_rtol: float = 0.0):
+    """Integers exactly; floats exactly, or within ``float_rtol`` of each
+    element where the caller states one."""
+    got, want = n(got), n(want)
+    if isinstance(want, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            assert_exact(got[k], want[k], f"{what}.{k}", float_rtol)
+        return
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if want.dtype.kind == "f":
+        np.testing.assert_allclose(got.astype(np.float32),
+                                   want.astype(np.float32), rtol=float_rtol,
+                                   atol=0, err_msg=what)
+    else:
+        np.testing.assert_array_equal(got.astype(np.int64),
+                                      want.astype(np.int64), err_msg=what)
+
+
+def assert_peak_close(got, want, rel: float, what=""):
+    """max |got - want| <= rel * max |want| (float stages: the two
+    frameworks sum in different orders)."""
+    got = n(got).astype(np.float64)
+    want = n(want).astype(np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    peak = max(np.abs(want).max(), 1e-30)
+    err = np.abs(got - want).max()
+    assert err <= rel * peak, f"{what}: max diff {err} > {rel} x peak {peak}"
+
+
+@functools.cache
+def port_trace(n_streams: int, T: int):
+    """Per-frame port expansion of real streams: list of (core_meta, plan,
+    pc, ps_plan) numpy dicts, plus the carries before each frame."""
+    from heaac_tpu_torch.codec import compact_plan, qwire
+    p = port_parse(n_streams, T)
+    heap = t(p["heap"])
+    recs = t(p["recs"])
+    qc = qwire.init_qcarry(n_streams, "cpu")
+    ph = compact_plan.init_ps_hist(n_streams, "cpu")
+    frames = []
+    for f in range(T):
+        core_meta, plan, pc, qc = qwire.expand_frame(heap, recs[f], qc)
+        ps_plan, ph = compact_plan.expand_ps(pc, ph)
+        frames.append(dict(core_meta=n(core_meta), plan=n(plan), pc=n(pc),
+                           ps_plan=n(ps_plan)))
+    return frames

@@ -1,0 +1,36 @@
+"""The PyTorch port runs without jax: a fresh interpreter in which
+importing ``jax`` or ``heaac_tpu`` fails imports heaac_tpu_torch and
+decodes a benchdata stream on the CPU."""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CODE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["heaac_tpu"] = None
+sys.path.insert(0, REPO)
+import numpy as np
+from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+data = open(REPO + "/benchdata/heaac_bench_stream_0.aac", "rb").read()
+pcm = QwirePipelinedDecoder([data], group_streams=1, max_frames=4).decode()
+pcm = pcm[0].numpy()
+gold = np.load(REPO + "/tests/data/heaac_v2_golden_jax.npz")["pcm"]
+diff = np.abs(pcm[:, 0].astype(np.int32) - gold[:4, 0]).max()
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
+print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
+"""
+
+
+def test_port_decodes_without_jax():
+    r = subprocess.run([sys.executable, "-c", f"REPO = {REPO!r}\n" + CODE],
+                       capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = [x for x in r.stdout.splitlines() if x.startswith("RESULT")][0]
+    assert line.startswith("RESULT (4, 1, 2, 2048)"), line
+    _, shape_end = line.split(")", 1)
+    peak, diff, loaded = shape_end.split(maxsplit=2)
+    assert int(peak) > 1000 and int(diff) <= 2 and loaded == "[]", line

@@ -1,0 +1,85 @@
+"""PyTorch port of parametric stereo (20-band) against
+heaac_tpu.ops.ps_jax, and the plain version of kernel K1 against the JAX
+scan pair (napb 30 and 50) and the Pallas kernel in interpret mode.
+
+Tolerances: K1 1e-6 absolute (as tests/test_ps_pallas.py); the float
+stages 1e-5 of each output's peak (einsum / sum order)."""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from heaac_tpu.ops import ps_jax, ps_pallas
+from heaac_tpu_torch.ops import ps, ps_decorrelate as K
+from test_torch_common import (  # noqa: F401 (autouse fixture)
+    assert_peak_close, n, port_trace, release_jax_memory, t)
+
+TOL = 1e-5
+NAMES = ("power", "in_re", "in_im", "trans", "ap", "ag", "qf")
+
+
+@pytest.mark.parametrize("napb", [30, 50])
+def test_k1_plain_matches_jax_scans(napb):
+    inp = K.random_inputs(8, napb, seed=napb)
+    c = ps_jax._consts(1 if napb == 50 else 0)
+    jtg, jout, jts, jap = ps_jax._decorrelate_scans(
+        jnp.asarray(inp["power"]), jnp.asarray(inp["in_re"]),
+        jnp.asarray(inp["in_im"]), dict(trans=jnp.asarray(inp["trans"])),
+        jnp.asarray(inp["ap"]), c)
+    tg, out, ntr, nap = K.decorrelate_seq(*(t(inp[k]) for k in NAMES))
+    for a, b in ((tg, jtg), (out, jout), (ntr, jnp.stack(jts, -1)),
+                 (nap, jap)):
+        np.testing.assert_allclose(n(a), n(b), rtol=0, atol=1e-6)
+
+
+def test_k1_plain_matches_pallas_interpret():
+    inp = K.random_inputs(8, 30, seed=3)
+    ref = ps_pallas.decorrelate_seq(*(jnp.asarray(inp[k]) for k in NAMES),
+                                    interpret=True)
+    got = K.decorrelate_seq(*(t(inp[k]) for k in NAMES))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(n(a), n(b), rtol=0, atol=1e-6)
+
+
+def test_k1_cpu_wrapper_counts_no_launch():
+    before = K.launches
+    K.decorrelate_seq(*(t(v) for v in K.random_inputs(2, 30).values()))
+    assert K.launches == before
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hybrid_analysis_synthesis_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    L = (rng.standard_normal((4, 2, 38, 64)) * 100).astype(np.float32)
+    in_buf = (rng.standard_normal((4, 5, 6, 2)) * 100).astype(np.float32)
+    jl, jb = ps_jax.hybrid_analysis(jnp.asarray(L), jnp.asarray(in_buf), 0)
+    lb, b = ps.hybrid_analysis(t(L), t(in_buf))
+    assert_peak_close(lb, jl, TOL, "lbuf")
+    assert_peak_close(b, jb, 0.0, "in_buf")
+    buf = (rng.standard_normal((4, 91, 32, 2)) * 100).astype(np.float32)
+    assert_peak_close(ps.hybrid_synthesis(t(buf)),
+                      ps_jax.hybrid_synthesis(jnp.asarray(buf), 0), TOL,
+                      "hybrid_synthesis")
+
+
+@pytest.mark.parametrize("frame", [0, 2])
+def test_decorrelate_and_mix_matches_jax(frame):
+    plan = port_trace(4, 3)[frame]["ps_plan"]
+    rng = np.random.default_rng(frame)
+    B = 4
+    lbuf = (rng.standard_normal((B, 91, 32, 2)) * 100).astype(np.float32)
+    state = dict(
+        delay=(rng.standard_normal((B, 91, 14, 2)) * 100).astype(np.float32),
+        ap=(rng.standard_normal((B, 50, 3, 5, 2)) * 10).astype(np.float32),
+        trans=np.abs(rng.standard_normal((B, 34, 3)) * 1e4).astype(
+            np.float32))
+    jl, jr, js = ps_jax.decorrelate_and_mix(
+        jnp.asarray(lbuf), {k: jnp.asarray(v) for k, v in state.items()},
+        {k: jnp.asarray(v) for k, v in plan.items()}, 0)
+    pl, pr, pstate = ps.decorrelate_and_mix(
+        t(lbuf), {k: t(v) for k, v in state.items()},
+        {k: t(v) for k, v in plan.items()})
+    assert_peak_close(pl, jl, TOL, "lmix")
+    assert_peak_close(pr, jr, TOL, "rmix")
+    for k in ("delay", "ap", "trans"):
+        assert_peak_close(pstate[k], js[k], TOL, k)

@@ -1,0 +1,100 @@
+"""PyTorch port of the qwire device half against heaac_tpu.codec.qwire:
+the byte-token coefficient decode (bitwise) on token lanes made by the
+JAX package's host emitter and on the benchdata heap, and the per-frame
+side-info expansion over real frames — every integer output and the
+whole carry exactly, the float plan tensors within 1e-6 of each element
+(XLA's CPU division / sqrt may differ from IEEE in the last bit)."""
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from heaac_tpu.codec import qwire as jq
+from heaac_tpu_torch.codec import qwire
+from test_torch_common import (  # noqa: F401 (autouse fixture)
+    assert_exact, n, port_parse, release_jax_memory, t)
+
+
+def _token_lanes(seed: int, B: int = 8):
+    rng = np.random.default_rng(seed)
+    heap = b""
+    recs = []
+    for _ in range(B):
+        q = np.zeros(1024, np.int64)
+        nz = rng.choice(1024, rng.integers(20, 300), replace=False)
+        q[nz] = rng.choice([-1, 1], len(nz)) * (
+            rng.integers(1, 8192, len(nz)) ** (rng.random(len(nz)) * 1.2)
+        ).astype(np.int64).clip(1, 8191)
+        sfw = np.zeros(1024, np.uint16)
+        si = rng.integers(0, 428, 32)
+        sgn = rng.integers(0, 2, 32)
+        for b in range(32):
+            sfw[b * 32:(b + 1) * 32] = si[b] | (sgn[b] << 15)
+        raw = np.zeros(1024, bool)
+        rawpos = rng.choice(1024, 17, replace=False)
+        raw[rawpos] = True
+        coef = np.zeros(1024, np.float32)
+        coef[rawpos] = rng.standard_normal(17).astype(np.float32) * 1e3
+        q[rawpos] = 0
+        toks, ext = jq.emit_coeff_tokens(coef, q.astype(np.int32), sfw, raw)
+        payload, rec = jq.assemble_lane(toks, ext, b"")
+        rec[jq.R_TOKOFF] = len(heap)
+        heap += payload
+        recs.append(rec)
+    payload, rec = jq.silence_lane()
+    rec[jq.R_TOKOFF] = len(heap)
+    recs.append(rec)
+    heap += payload
+    return np.frombuffer(heap, np.uint8).astype(np.int32), np.stack(recs)
+
+
+def _coeffs_both(heap, rec, S=640):
+    ref = jq.decode_coeffs_jax(jnp.asarray(heap), jnp.asarray(rec[:, 0]),
+                               jnp.asarray(rec[:, 1] & 0xFFFF), S)
+    got = qwire.decode_coeffs(t(heap), t(rec[:, 0]), t(rec[:, 1] & 0xFFFF), S)
+    return n(got), n(ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_coeffs_token_lanes_bitwise(seed):
+    got, ref = _coeffs_both(*_token_lanes(seed))
+    assert np.abs(ref).max() > 0
+    assert_exact(got.view(np.int32), ref.view(np.int32), "coeffs")
+
+
+def test_decode_coeffs_benchdata_heap_bitwise():
+    """Spec-mode lanes read as tokens (garbage the scan discards) must
+    still match: the clamps and fills are part of the contract."""
+    p = port_parse(8, 3)
+    got, ref = _coeffs_both(p["heap"].astype(np.int32),
+                            p["recs"].reshape(-1, 4), p["S"])
+    assert_exact(got.view(np.int32), ref.view(np.int32), "coeffs")
+
+
+@functools.cache
+def _jax_expand():
+    return jax.jit(lambda h, r, c: jq.expand_frame_jax(h, r, c, 0, 0))
+
+
+def test_expand_frame_matches_jax_over_frames():
+    T = 6
+    p = port_parse(4, T)
+    heap = p["heap"].astype(np.int32)
+    jheap = jnp.asarray(heap)
+    pheap = t(heap)
+    jc = jq.init_qcarry(4)
+    pc = qwire.init_qcarry(4, "cpu")
+    fn = _jax_expand()
+    for f in range(T):
+        rec = p["recs"][f]
+        jout = fn(jheap, jnp.asarray(rec), jc)
+        pout = qwire.expand_frame(pheap, t(rec), pc)
+        for name, a, b in zip(("core_meta", "plan", "pc", "carry"), pout,
+                              jout):
+            assert_exact(a, b, f"frame {f} {name}",
+                         float_rtol=1e-6 if name == "plan" else 0.0)
+        jc, pc = jout[3], pout[3]
+    assert n(pc["ps"]["ps_ok"]).all()
