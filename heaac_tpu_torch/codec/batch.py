@@ -39,11 +39,12 @@ log = logging.getLogger("heaac_tpu_torch")
 class QwirePipelinedDecoder:
     """End-to-end pipelined batched decode over the quantized wire
     format; ``decode()`` returns one pcm tensor [T, L, 2, 2048] int16 per
-    stream group, on ``device``."""
+    stream group, on ``device``: the card unless the caller passes
+    ``device="cpu"`` (without a card the default raises RuntimeError)."""
 
     def __init__(self, streams, group_streams: int = 256,
                  max_frames: int | None = None, token_cap: int = 640,
-                 device="cpu"):
+                 device="cuda"):
         self.device = resolve(device)
         self.streams = [bytes(s) for s in streams]
         self.hdr = parse_adts_header(self.streams[0][:7])

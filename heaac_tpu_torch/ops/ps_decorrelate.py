@@ -16,7 +16,13 @@ never falls back to the plain version.
 Contract (ps_pallas.decorrelate_seq): power [B,34,32], in_re/in_im
 [B,napb,32], trans [B,34,3], ap [B,napb,3,5,2], ag [napb,3],
 qf [napb,3,2] -> (tgain [B,32,34], ap_out [B,napb,32,2],
-new_trans [B,34,3], new_ap [B,napb,3,5,2]), all f32.
+new_trans [B,34,3], new_ap [B,napb,3,5,2]), all f32 and contiguous;
+on the card power, in_re, in_im and ap also start 16-byte aligned.
+
+The kernel's launch geometry (lanes per CTA, the two roles' thread
+counts, the shared-memory layout) is computed here by ``geometry`` and
+passed to the launcher; ``work_items`` and ``copies`` restate the
+kernel's index arithmetic so that the CPU tests can check it.
 """
 from __future__ import annotations
 
@@ -94,21 +100,129 @@ def _nvcc() -> str:
                        "be built")
 
 
-def build() -> float:
-    """Compile the kernel library if missing or older than its source;
-    returns the seconds spent compiling (0 when current)."""
-    return compile_if_stale(SO, [SRC], [_nvcc(), *NVCC_FLAGS, SRC])
+def build(extra_flags=()) -> float:
+    """Compile the kernel library if missing or older than its source
+    (``extra_flags`` go to nvcc, e.g. ``("-Xptxas", "-v")``); returns the
+    seconds spent compiling (0 when current)."""
+    return compile_if_stale(SO, [SRC],
+                            [_nvcc(), *NVCC_FLAGS, *extra_flags, SRC])
+
+
+# ---- launch geometry (csrc/ps_decorrelate.cu, "Design") ---------------------
+LANES_PER_CTA = 2
+# Staged row pitches in floats: an odd number of float4s, so the float4s
+# that 8 consecutive threads read or write at one column fall in 8
+# different shared-memory bank groups.
+IN_PITCH = 36     # 32-float rows of power, in_re, in_im
+OUT_PITCH = 68    # 64-float rows of ap_out
+SMEM_MAX = 232_448          # dynamic shared memory one Hopper block may use
+_RING = 30                  # floats of allpass ring per band
+_STEP = 16                  # slots per pipeline step (kStep)
+
+
+class Geometry(ctypes.Structure):
+    """The kernel's ``Geometry`` (same fields, same order): lanes per
+    CTA, the two roles' thread counts, the staged row pitches (floats),
+    the byte offset of each shared-memory region (new_ap reuses ``ap``)
+    and the dynamic shared memory in bytes."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "lanes", "det_threads", "chain_threads", "in_pitch", "out_pitch",
+        "power", "in_re", "in_im", "ap", "tgain", "ap_out", "smem")]
+
+
+def _warps(threads: int) -> int:
+    return -(-threads // 32) * 32
+
+
+@functools.cache
+def geometry(napb: int) -> Geometry:
+    """Block and shared-memory layout of one CTA of LANES_PER_CTA
+    lanes."""
+    lanes = LANES_PER_CTA
+    regions = (("power", 34 * IN_PITCH), ("in_re", napb * IN_PITCH),
+               ("in_im", napb * IN_PITCH), ("ap", napb * _RING),
+               ("tgain", 32 * 34), ("ap_out", napb * OUT_PITCH))
+    off, offsets = 0, {}
+    for name, floats in regions:
+        offsets[name] = off
+        off += -(-lanes * floats * 4 // 16) * 16
+    return Geometry(lanes=lanes, det_threads=_warps(lanes * 34),
+                    chain_threads=_warps(lanes * napb), in_pitch=IN_PITCH,
+                    out_pitch=OUT_PITCH, smem=off, **offsets)
+
+
+def grid(B: int, geo: Geometry) -> int:
+    return -(-B // geo.lanes)
+
+
+def work_items(B: int, napb: int):
+    """(role, lane, band) computed by every thread of a launch, by the
+    kernel's index arithmetic (for the tests; the kernel cannot run on
+    the CPU)."""
+    geo = geometry(napb)
+    for cta in range(grid(B, geo)):
+        b0 = cta * geo.lanes
+        g = min(geo.lanes, B - b0)
+        for t in range(geo.det_threads + geo.chain_threads):
+            u = t - geo.det_threads
+            if t < geo.det_threads:
+                if t < g * 34:
+                    yield "detector", b0 + t // 34, t % 34
+            elif u < g * napb:
+                yield "chain", b0 + u // napb, u % napb
+
+
+def copies(B: int, napb: int):
+    """Every 16-byte-chunked copy of a launch, one per piece of a row:
+    (array, byte offset in the array, byte offset in shared memory,
+    bytes), by the kernel's index arithmetic (for the tests).  Rows of
+    32 slots go in pieces of ``_STEP`` slots, one per pipeline step."""
+    geo = geometry(napb)
+    h = _STEP
+    steps = tuple(range(0, 32, h))
+    # array, region, rows per lane, floats per piece, global row pitch,
+    # shared row pitch, the pieces' first floats
+    rows = (("power", "power", 34, h, 32, geo.in_pitch, steps),
+            ("in_re", "in_re", napb, h, 32, geo.in_pitch, steps),
+            ("in_im", "in_im", napb, h, 32, geo.in_pitch, steps),
+            ("ap", "ap", napb * _RING // 4, 4, 4, 4, (0,)),
+            ("tgain", "tgain", 1, h * 34, 32 * 34, 32 * 34,
+             tuple(n * 34 for n in steps)),
+            ("ap_out", "ap_out", napb, 2 * h, 64, geo.out_pitch,
+             tuple(2 * n for n in steps)),
+            ("new_ap", "ap", napb * _RING // 4, 4, 4, 4, (0,)))
+    for cta in range(grid(B, geo)):
+        b0 = cta * geo.lanes
+        g = min(geo.lanes, B - b0)
+        for array, region, per_lane, width, gp, sp, cols in rows:
+            for r in range(g * per_lane):
+                for col in cols:
+                    yield (array, 4 * ((b0 * per_lane + r) * gp + col),
+                           getattr(geo, region) + 4 * (r * sp + col),
+                           4 * width)
 
 
 @functools.cache
 def _lib():
     build()
     L = ctypes.CDLL(SO)
-    vp = ctypes.c_void_p
-    L.ps_decorrelate_launch.restype = ctypes.c_int
-    L.ps_decorrelate_launch.argtypes = [vp] * 11 + [ctypes.c_int,
-                                                    ctypes.c_int, vp]
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    L.ps_decorrelate_launch.restype = i32
+    L.ps_decorrelate_launch.argtypes = [vp] * 11 + [i32] * 3 + [Geometry, vp]
+    L.ps_decorrelate_ctas_per_sm.restype = i32
+    L.ps_decorrelate_ctas_per_sm.argtypes = [i32, i32]
     return L
+
+
+def ctas_per_sm(napb: int) -> int:
+    """CTAs of the kernel one SM of the current card holds at napb's
+    geometry (the CUDA occupancy calculator; -1 on an error)."""
+    geo = geometry(napb)
+    return _lib().ps_decorrelate_ctas_per_sm(
+        geo.det_threads + geo.chain_threads, geo.smem)
+
+
+_STAGED = ("power", "in_re", "in_im", "ap")
 
 
 def _check(name, t, shape, device):
@@ -120,6 +234,9 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if name in _STAGED and t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel stages it with 16-byte copies"
+                         " and needs a 16-byte aligned start")
 
 
 def decorrelate_seq(power, in_re, in_im, trans, ap, ag, qf):
@@ -144,12 +261,13 @@ def decorrelate_seq(power, in_re, in_im, trans, ap, ag, qf):
     ap_out = torch.empty((B, napb, 32, 2), dtype=torch.float32, device=dev)
     new_trans = torch.empty((B, 34, 3), dtype=torch.float32, device=dev)
     new_ap = torch.empty((B, napb, 3, 5, 2), dtype=torch.float32, device=dev)
+    geo = geometry(napb)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().ps_decorrelate_launch(
         power.data_ptr(), in_re.data_ptr(), in_im.data_ptr(),
         trans.data_ptr(), ap.data_ptr(), ag.data_ptr(), qf.data_ptr(),
         tgain.data_ptr(), ap_out.data_ptr(), new_trans.data_ptr(),
-        new_ap.data_ptr(), B, napb, stream)
+        new_ap.data_ptr(), B, napb, grid(B, geo), geo, stream)
     if rc != 0:
         raise RuntimeError(f"ps_decorrelate kernel launch failed: CUDA "
                            f"error {rc}")

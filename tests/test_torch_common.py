@@ -48,7 +48,8 @@ def port_parse(n: int, T: int) -> dict:
     the port: heap bytes, records [T, n, 4] and the static decode sizes."""
     from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
     streams = bench_streams(n)
-    dec = QwirePipelinedDecoder(streams, group_streams=n, max_frames=T)
+    dec = QwirePipelinedDecoder(streams, group_streams=n, max_frames=T,
+                                device="cpu")
     heap, cur, recs = dec._parse_group(streams, 0, T)
     return dict(heap=heap[:cur + 4096].copy(), recs=recs[:T].copy(),
                 S=dec.S, NB=dec.NB, NS=dec.NS, SEC=dec.SEC,

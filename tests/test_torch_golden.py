@@ -39,7 +39,7 @@ def test_golden_regenerates_byte_for_byte():
 def test_port_cpu_matches_golden():
     gold = _committed()
     dec = QwirePipelinedDecoder(bench_streams(2), group_streams=2,
-                                max_frames=gold.shape[0])
+                                max_frames=gold.shape[0], device="cpu")
     pcm = dec.decode()[0].numpy()
     assert pcm.shape == gold.shape
     assert np.abs(pcm.astype(np.int32) - gold).max() <= 2

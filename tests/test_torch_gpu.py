@@ -27,8 +27,10 @@ def cuda():
 
 
 @pytest.mark.parametrize("napb", [30, 50])
-def test_k1_kernel_matches_plain(cuda, napb):
-    inp = K.random_inputs(512, napb, seed=napb)
+@pytest.mark.parametrize("B", [1, 3, 512, 513])
+def test_k1_kernel_matches_plain(cuda, B, napb):
+    """Bit for bit, also where the last tile of lanes is ragged."""
+    inp = K.random_inputs(B, napb, seed=napb)
     args = [torch.from_numpy(inp[k]).to(cuda).contiguous() for k in NAMES]
     before = K.launches
     got = K.decorrelate_seq(*args)
@@ -36,7 +38,8 @@ def test_k1_kernel_matches_plain(cuda, napb):
     ref = K.decorrelate_plain(*args)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
-        assert float((a - b).abs().max()) <= 1e-6
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) == 0.0
 
 
 def test_main_path_on_card_matches_cpu(cuda):
@@ -45,6 +48,6 @@ def test_main_path_on_card_matches_cpu(cuda):
     gpu = QwirePipelinedDecoder(streams, group_streams=4, max_frames=8,
                                 device=cuda).decode()[0].cpu().numpy()
     assert K.launches - before >= 8
-    cpu = QwirePipelinedDecoder(streams, group_streams=4,
-                                max_frames=8).decode()[0].numpy()
+    cpu = QwirePipelinedDecoder(streams, group_streams=4, max_frames=8,
+                                device="cpu").decode()[0].numpy()
     assert np.abs(gpu.astype(np.int32) - cpu).max() <= 2

@@ -15,7 +15,8 @@ sys.path.insert(0, REPO)
 import numpy as np
 from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
 data = open(REPO + "/benchdata/heaac_bench_stream_0.aac", "rb").read()
-pcm = QwirePipelinedDecoder([data], group_streams=1, max_frames=4).decode()
+pcm = QwirePipelinedDecoder([data], group_streams=1, max_frames=4,
+                            device="cpu").decode()
 pcm = pcm[0].numpy()
 gold = np.load(REPO + "/tests/data/heaac_v2_golden_jax.npz")["pcm"]
 diff = np.abs(pcm[:, 0].astype(np.int32) - gold[:4, 0]).max()

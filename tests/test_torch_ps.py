@@ -41,6 +41,41 @@ def test_k1_plain_matches_pallas_interpret():
         np.testing.assert_allclose(n(a), n(b), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("napb", [30, 50])
+@pytest.mark.parametrize("B", [1, 2, 3, 512, 513])
+def test_k1_launch_geometry(B, napb):
+    """The kernel's grid, roles and shared-memory layout (computed in
+    Python and passed to the launcher): every (lane, band) is computed by
+    exactly one thread, shared memory fits one block, and every 16-byte
+    copy is aligned at both ends and stays inside its region."""
+    geo = K.geometry(napb)
+    want = [("detector", b, i) for b in range(B) for i in range(34)] + [
+        ("chain", b, k) for b in range(B) for k in range(napb)]
+    assert sorted(K.work_items(B, napb)) == sorted(want)
+    assert geo.det_threads % 32 == 0 and geo.chain_threads % 32 == 0
+    assert geo.det_threads + geo.chain_threads <= 256   # __launch_bounds__
+    assert geo.smem <= K.SMEM_MAX
+    # float4 reads / writes of 8 consecutive staged rows hit 8 different
+    # 16-byte bank groups when a row's pitch is an odd number of float4s
+    assert (geo.in_pitch // 4) % 2 == 1 and (geo.out_pitch // 4) % 2 == 1
+
+    starts = sorted((getattr(geo, r), r) for r in (
+        "power", "in_re", "in_im", "ap", "tgain", "ap_out"))
+    end = {r: nxt for (_, r), (nxt, _) in zip(
+        starts, starts[1:] + [(geo.smem, None)])}
+    sizes = dict(power=34 * 32, in_re=napb * 32, in_im=napb * 32,
+                 ap=napb * 30, tgain=32 * 34, ap_out=napb * 64,
+                 new_ap=napb * 30)
+    moved = dict.fromkeys(sizes, 0)
+    for array, off, soff, nbytes in K.copies(B, napb):
+        region = "ap" if array == "new_ap" else array
+        assert off % 16 == 0 and soff % 16 == 0 and nbytes % 16 == 0
+        assert off + nbytes <= B * sizes[array] * 4
+        assert getattr(geo, region) <= soff and soff + nbytes <= end[region]
+        moved[array] += nbytes
+    assert moved == {k: B * v * 4 for k, v in sizes.items()}
+
+
 def test_k1_cpu_wrapper_counts_no_launch():
     before = K.launches
     K.decorrelate_seq(*(t(v) for v in K.random_inputs(2, 30).values()))

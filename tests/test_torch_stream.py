@@ -51,7 +51,8 @@ def test_parser_matches_jax_parse_group():
     streams = bench_streams(LANES)
     jd = JaxDecoder(streams, group_streams=LANES, max_frames=T)
     jheap, jcur, jrecs = jd._parse_group(streams, 0, T)
-    pd = QwirePipelinedDecoder(streams, group_streams=LANES, max_frames=T)
+    pd = QwirePipelinedDecoder(streams, group_streams=LANES, max_frames=T,
+                               device="cpu")
     pheap, pcur, precs = pd._parse_group(streams, 0, T)
     assert pcur == jcur
     assert bytes(pheap[:pcur]) == bytes(jheap[:jcur])
@@ -97,9 +98,10 @@ def test_heap_overflow_grows_and_retries():
     """Parser return -3 (heap full): the decoder grows its staging and
     reparses; the output is the same as with a large heap."""
     streams = bench_streams(2)
-    ref = QwirePipelinedDecoder(streams, group_streams=2,
-                                max_frames=4).decode()[0].numpy()
-    dec = QwirePipelinedDecoder(streams, group_streams=2, max_frames=4)
+    ref = QwirePipelinedDecoder(streams, group_streams=2, max_frames=4,
+                                device="cpu").decode()[0].numpy()
+    dec = QwirePipelinedDecoder(streams, group_streams=2, max_frames=4,
+                                device="cpu")
     dec._cap = 2048
     out = dec.decode()[0].numpy()
     assert dec._cap > 2048
