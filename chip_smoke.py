@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
      and shared-memory report), the first K1 design kept as a yardstick
      (tools/k1_thread_per_band.cu) and the native parser (g++);
   3. kernel check: K1 against its plain PyTorch version, bit for bit
-     (max |diff| = 0.0), at B=512 and ragged B, napb 30 and 50.  Device
+     (max |diff| = 0.0), at B=512, B=256 (the width of decode_batch's
+     34-band stream groups) and ragged B, napb 30 and 50.  Device
      times from torch.profiler's kernel records, for K1 and the yardstick
      in turns (yardstick, K1, K1, yardstick): warm (the same inputs again,
      in L2) and cold (a 128 MB write before each launch, not counted);
@@ -21,12 +22,27 @@ Phases (any failure exits non-zero):
      non-silent output, one K1 launch per frame, lanes 0-7 within 2 LSB
      of the port's CPU run and of the committed JAX golden
      (tests/data/heaac_v2_golden_jax.npz), and prints the realtime
-     factor.
-The line before last is the card's name and power limit (nvidia-smi), the
-one before it the kernel table as JSON; the last line is the result.
+     factor;
+  5. mixed batch: heaac_tpu_torch.decode_batch with its default device
+     over 512 34-band HE-AAC v2 streams (tiled from
+     tests/data/heaac_v2_34band_{0..7}.aac), 512 AAC-LC streams (tiled
+     from benchdata/lc_core_24k_{0..7}.aac), the 8 bundled 20-band
+     streams and one buffer with no sync word, shuffled, each its own
+     byte buffer; a warm-up run, then a timed one.  Prints each bucket's
+     streams, frames, wall seconds and realtime factor, and K1's launches
+     at napb 30 and 50; checks that the 34-band bucket launched K1 at
+     napb 50 once per frame of each of its groups, every output's shape
+     and non-silence, and streams 0-1 of each kind within 2 LSB of the
+     committed JAX golden (tests/data/decode_batch_golden_jax.npz) and
+     of the port's CPU decode_batch over their first 16 frames.
+Each phase prints its seconds.  The line before last is the card's name
+and power limit (nvidia-smi), the one before it the kernel table as JSON;
+the last line is the result.
 """
 import ctypes
+import importlib.util
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -42,6 +58,9 @@ LANES = 512
 TOL_LSB = 2
 NAMES = ("power", "in_re", "in_im", "trans", "ap", "ag", "qf")
 REPS = 50
+MIXED_LANES = 512              # streams per kind in phase 5
+GROUP_LANES = 256              # decode_batch's HE stream groups
+GOLDEN_FRAMES = 16
 FLUSH_BYTES = 128 << 20        # > 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -158,7 +177,7 @@ def kernel_check(K, ys):
     """K1 and the yardstick against the plain version on the card, bit
     for bit; device times at B=512.  Returns ({napb: row}, max error)."""
     worst = 0.0
-    for B in (1, 3, LANES + 1):
+    for B in (1, 3, GROUP_LANES, LANES + 1):
         for napb in (30, 50):
             args = k1_args(B, napb, 7 + B, K)
             err = max_diff(K.decorrelate_seq(*args),
@@ -210,6 +229,131 @@ def kernel_check(K, ys):
     return rows, worst
 
 
+def reset_launches(K) -> None:
+    for napb in K.launches:
+        K.launches[napb] = 0
+
+
+class BucketLog(logging.Handler):
+    """Collects decode_batch's per-bucket records (``bucket_stats``)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.stats = []
+
+    def emit(self, record):
+        st = getattr(record, "bucket_stats", None)
+        if st is not None:
+            self.stats.append(st)
+
+
+def golden_tool():
+    """tools/make_torch_golden.py as a module: its stream list and file
+    names (it imports the JAX package only inside its writers)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_golden", os.path.join(REPO, "tools",
+                                          "make_torch_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mixed_batch(K, card: str) -> dict:
+    """Phase 5: decode_batch over the mixed batch on the card (default
+    device); returns the K1 launch counts of the timed run."""
+    from heaac_tpu_torch import decode_batch
+    from heaac_tpu_torch.host import count_adts_frames, split_adts_stream
+    tool = golden_tool()
+    named = dict(tool.batch_streams())
+    files = {kind: [open(os.path.join(REPO, pat.format(i)), "rb").read()
+                    for i in range(8)]
+             for kind, pat in (
+                 ("he34", "tests/data/heaac_v2_34band_{}.aac"),
+                 ("lc", "benchdata/lc_core_24k_{}.aac"),
+                 ("he20", "benchdata/heaac_bench_stream_{}.aac"))}
+    items = ([("he34", i % 8) for i in range(MIXED_LANES)]
+             + [("lc", i % 8) for i in range(MIXED_LANES)]
+             + [("he20", i) for i in range(8)] + [("garbage", 0)])
+    order = np.random.default_rng(5).permutation(len(items))
+    items = [items[k] for k in order]
+    # every lane its own byte buffer
+    streams = [bytes(bytearray(named["garbage"] if kind == "garbage"
+                               else files[kind][i])) for kind, i in items]
+    where = {}                     # (kind, file) -> first position
+    for pos, it in enumerate(items):
+        where.setdefault(it, pos)
+
+    bucket_log = BucketLog()
+    logger = logging.getLogger("heaac_tpu_torch")
+    logger.addHandler(bucket_log)
+    logger.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    decode_batch(streams)                          # warm-up
+    warm_s = time.perf_counter() - t0
+    bucket_log.stats.clear()
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs = decode_batch(streams)
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    logger.removeHandler(bucket_log)
+
+    frames = {kind: [count_adts_frames(d) for d in files[kind]]
+              for kind in files}
+    for st in bucket_log.stats:
+        print(f"bucket {st['key']}: {st['streams']} streams, "
+              f"{st['frames']} frames, {st['audio_s']:.3f} s of audio, "
+              f"wall {st['wall_s']:.3f} s, realtime "
+              f"{st['audio_s'] / st['wall_s']:.1f}x on {card}", flush=True)
+    total_audio = sum(st["audio_s"] for st in bucket_log.stats)
+    print(f"mixed batch: {len(streams)} streams, wall {wall:.3f} s "
+          f"(warm-up {warm_s:.3f} s), realtime {total_audio / wall:.1f}x; "
+          f"K1 launches napb 30: {launches[30]}, napb 50: {launches[50]}",
+          flush=True)
+    groups34 = -(-MIXED_LANES // GROUP_LANES)
+    want50 = groups34 * max(frames["he34"])
+    if len(set(frames["he34"])) != 1 or launches[50] != want50:
+        raise SystemExit(f"34-band bucket: K1 napb 50 launched "
+                         f"{launches[50]} times, expected {groups34} groups "
+                         f"x {max(frames['he34'])} frames = {want50}")
+    if launches[30] != max(frames["he20"]):
+        raise SystemExit(f"20-band bucket: K1 napb 30 launched "
+                         f"{launches[30]} times for {max(frames['he20'])} "
+                         "frames")
+
+    for (kind, i), pcm in zip(items, outs):
+        if kind == "garbage":
+            ok = tuple(pcm.shape) == (0, 1)
+        else:
+            spf, ch = (1024, 1) if kind == "lc" else (2048, 2)
+            ok = (tuple(pcm.shape) == (frames[kind][i] * spf, ch)
+                  and pcm.dtype == torch.int16 and pcm.device.type == "cpu"
+                  and int(pcm.abs().max()) > 0)
+        if not ok:
+            raise SystemExit(f"{kind} stream {i}: output {tuple(pcm.shape)}"
+                             f" {pcm.dtype}, silent or of the wrong shape")
+
+    with np.load(tool.BATCH_GOLDEN) as z:
+        gold = {str(name): z[f"pcm_{k}"] for k, name in enumerate(z["names"])}
+    heads = [b"".join(split_adts_stream(files[kind][i])[:GOLDEN_FRAMES])
+             for kind in ("he20", "he34", "lc") for i in (0, 1)]
+    cpu = decode_batch(heads, device="cpu")
+    worst = {}
+    for k, (kind, i) in enumerate((kind, i) for kind in ("he20", "he34", "lc")
+                                  for i in (0, 1)):
+        rows = cpu[k].shape[0]
+        got = outs[where[kind, i]][:rows].numpy().astype(np.int32)
+        d_gold = int(np.abs(got - gold[f"{kind}_{i}"][:rows]).max())
+        d_cpu = int(np.abs(got - cpu[k].numpy()).max())
+        worst[f"{kind}_{i}"] = (d_gold, d_cpu)
+    print(f"streams 0-1 of each kind, first {GOLDEN_FRAMES} frames, max LSB "
+          f"(vs JAX golden, vs port CPU): {worst}", flush=True)
+    if max(max(v) for v in worst.values()) > TOL_LSB:
+        raise SystemExit("mixed batch: card output differs from the "
+                         "references")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -223,12 +367,21 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}",
           flush=True)
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase:.2f} s", flush=True)
+        t_phase = now
 
     # ---- 2. build -----------------------------------------------------------
     ys = Yardstick(build_all(K, native))
+    phase_done("2 build")
 
     # ---- 3. kernel check ----------------------------------------------------
     krows, worst = kernel_check(K, ys)
+    phase_done("3 kernel check")
 
     # ---- 4. main path -------------------------------------------------------
     bench = [open(os.path.join(REPO, "benchdata",
@@ -241,11 +394,11 @@ def main() -> None:
     t0 = time.perf_counter()
     dec.decode()                                   # warm-up (cuBLAS, consts)
     warm_s = time.perf_counter() - t0
-    K.launches = 0
+    reset_launches(K)
     t0 = time.perf_counter()
     outs = dec.decode()
     wall = time.perf_counter() - t0
-    launches = K.launches
+    launches = K.launches[30]
     pcm = outs[0].cpu().numpy()                    # [T, L, 2, 2048] int16
     T = pcm.shape[0]
     audio_s = dec.audio_seconds()
@@ -253,8 +406,9 @@ def main() -> None:
           f"wall {wall:.3f} s (warm-up {warm_s:.3f} s), realtime "
           f"{audio_s / wall:.1f}x on {card}; K1 launches {launches}",
           flush=True)
-    if launches != T:
-        raise SystemExit(f"K1 launched {launches} times for {T} frames")
+    if launches != T or K.launches[50]:
+        raise SystemExit(f"K1 launched {K.launches} times (napb: count) "
+                         f"for {T} frames of 20-band PS")
     peak = np.abs(pcm.astype(np.int32)).max(axis=(0, 2, 3))
     if not (peak > 0).all():
         raise SystemExit(f"silent lanes: {np.flatnonzero(peak == 0)}")
@@ -272,6 +426,11 @@ def main() -> None:
           flush=True)
     if d_cpu > TOL_LSB or d_gold > TOL_LSB:
         raise SystemExit("card output differs from the references")
+    phase_done("4 main path")
+
+    # ---- 5. mixed batch through decode_batch -------------------------------
+    mixed = mixed_batch(K, card)
+    phase_done("5 mixed batch")
 
     row = dict(krows[30])
     row.pop("max_abs_err")
@@ -280,7 +439,11 @@ def main() -> None:
         "source": "heaac_tpu_torch/csrc/ps_decorrelate.cu",
         "replaces": "heaac_tpu/ops/ps_pallas.py:31",
         "launches": launches, "max_abs_err": worst, **row,
-        "library_ms": None, "napb50": krows[50]}]}))
+        "library_ms": None, "napb50": krows[50],
+        "launches_napb50": mixed[50],
+        "launches_napb50_path": "phase 5: decode_batch, 34-band bucket "
+                                f"({MIXED_LANES} streams)",
+        "launches_phase5_napb30": mixed[30]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

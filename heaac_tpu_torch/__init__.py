@@ -1,7 +1,8 @@
 """heaac_tpu_torch — the HE-AAC decoder's PyTorch port (CUDA on Hopper).
 
 A second package beside the JAX reference ``heaac_tpu``: it takes ADTS
-bytes in and gives int16 PCM out for batches of independent streams, with
+bytes in and gives int16 PCM out for batches of independent streams
+(``decode_batch``: mixed HE-AAC v2 / v1 and AAC-LC batches), with
 the device graph as PyTorch ops and the parametric-stereo recurrence as a
 hand-written CUDA kernel (``csrc/ps_decorrelate.cu``).  The package never
 imports ``jax`` or ``heaac_tpu``; it builds the JAX package's C++ parser
@@ -21,3 +22,8 @@ def set_f32_flags() -> None:
     runs every matmul at Precision.HIGHEST, so TF32 stays off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+from .codec.batch import decode_batch  # noqa: E402  (needs set_f32_flags)
+
+__all__ = ["decode_batch", "set_f32_flags"]

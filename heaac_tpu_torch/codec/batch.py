@@ -1,20 +1,28 @@
-"""Pipelined batched decode of many independent HE-AAC v2 streams.
+"""Batched decode of many independent streams, and the mixed-batch
+front door ``decode_batch``.
 
-Counterpart: ``heaac_tpu/codec/batch.py`` QwirePipelinedDecoder.  The
-native parser (``native.py``) writes each group of streams into a byte
-heap + per-frame-lane records (the qwire format) in host staging buffers
-(pinned when the device is CUDA, two sets); each group is uploaded with
-non-blocking copies and decoded by the whole-stream scan
-(``heaac_graph.qwire_scan_decode``).  The parse of group g+1 runs on a
-worker thread (the native call releases the GIL) while the main thread
-issues group g's decode.
+Counterparts: ``heaac_tpu/codec/batch.py`` — QwirePipelinedDecoder,
+LcStreamBatchDecoder, decode_batch, _decode_bucket_retry, _decode_bucket.
 
-Differences from the JAX decoder:
-  - the stream profile (lanes, SBR, PS band mode) comes from a native
-    probe of the first stream, not the Python planner;
-  - a stream the native parser cannot take raises NotImplementedError
-    (the Python-planner fallback is not ported), as do PS band-mode 34,
-    device M/S, coupled-CPE SBR rows and AFTER_IMDCT coupling;
+QwirePipelinedDecoder (HE-AAC v1/v2): the native parser (``native.py``)
+writes each group of streams into a byte heap + per-frame-lane records
+(the qwire format) in host staging buffers (pinned when the device is
+CUDA, two sets); each group is uploaded with non-blocking copies and
+decoded by the whole-stream scan (``heaac_graph.qwire_scan_decode``).
+The parse of group g+1 runs on a worker thread (the native call releases
+the GIL) while the main thread issues group g's decode.
+
+LcStreamBatchDecoder (AAC-LC / Main): the native whole-stream parser
+gives every frame's dequantized spectra; one upload, then the IMDCT /
+overlap-add scan (``heaac_graph.lc_scan_decode``).
+
+Differences from the JAX package:
+  - stream profiles (lanes, SBR, PS band mode) come from a native probe
+    of the first two frames, not the Python planner;
+  - what the JAX package hands to the Python planner, the single-stream
+    ``Decoder`` or the band-mode-flip scan raises NotImplementedError
+    naming the stream, as do device M/S, coupled-CPE SBR rows, CCE lanes
+    and AFTER_IMDCT coupling (none of them is ported);
   - the heap travels as a uint8 tensor (the f32 view existed only for
     the TPU transport).
 """
@@ -22,25 +30,37 @@ from __future__ import annotations
 
 import ctypes as C
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .. import native
+from .. import tables as TB
 from ..device import resolve
 from ..host import (R_W1, REC_W, count_adts_frames, parse_adts_header,
-                    rows_pair_static, silence_lane, spec_static_args)
-from .heaac_graph import init_qwire_carry, qwire_scan_decode
+                    rows_pair_static, silence_lane, spec_static_args,
+                    split_adts_stream)
+from .heaac_graph import init_qwire_carry, lc_scan_decode, qwire_scan_decode
 
 log = logging.getLogger("heaac_tpu_torch")
+
+
+def _layout_lanes(chan_config: int) -> int:
+    """Output lanes of an ADTS channel config's default layout (a CPE
+    is two lanes); 0 for config 0, whose layout comes in a PCE."""
+    return sum(2 if et == TB.TYPE_CPE else 1
+               for et, _ in TB.CHANNEL_LAYOUT_MAP.get(chan_config, ()))
 
 
 class QwirePipelinedDecoder:
     """End-to-end pipelined batched decode over the quantized wire
     format; ``decode()`` returns one pcm tensor [T, L, 2, 2048] int16 per
     stream group, on ``device``: the card unless the caller passes
-    ``device="cpu"`` (without a card the default raises RuntimeError)."""
+    ``device="cpu"`` (without a card the default raises RuntimeError).
+    Stream i sits in group ``group_of[i]`` at lanes ``slot_of[i] * nl``
+    onwards; its first ``out_nl`` lanes are output channels."""
 
     def __init__(self, streams, group_streams: int = 256,
                  max_frames: int | None = None, token_cap: int = 640,
@@ -50,14 +70,17 @@ class QwirePipelinedDecoder:
         self.hdr = parse_adts_header(self.streams[0][:7])
         self.G = min(group_streams, len(self.streams))
         self.parser = native.Parser()
-        lanes, sbr_on, is34, edges = self._probe(self.streams[0])
-        if is34:
+        probe = self.parser.probe(self.streams[0], self.hdr)
+        if probe is None:
             raise NotImplementedError(
-                "stream 0: 34-band parametric stereo is not ported")
-        if edges:
+                "stream 0 needs the Python planner, which is not ported")
+        self.nl = probe["lanes"]
+        self.out_nl = _layout_lanes(self.hdr.chan_config)
+        if self.nl != self.out_nl:
             raise NotImplementedError(
-                "stream 0: AFTER_IMDCT channel coupling is not ported")
-        self.nl = lanes
+                f"stream 0: {self.nl} lanes for channel config "
+                f"{self.hdr.chan_config} (CCE lanes or a PCE layout), "
+                "which is not ported")
         counts = [count_adts_frames(s) for s in self.streams]
         if max_frames is not None:
             counts = [min(c, max_frames) for c in counts]
@@ -66,12 +89,19 @@ class QwirePipelinedDecoder:
         # length bucketing: groups in ascending frame-count order, each
         # scanned over its own longest stream (rounded up to 32)
         self.order = sorted(range(n), key=lambda i: counts[i])
+        self.group_of = {}
+        self.slot_of = {}
         self.group_T = []
         for g0 in range(0, n, self.G):
-            tg = max(counts[i] for i in self.order[g0:g0 + self.G])
+            idxs = self.order[g0:g0 + self.G]
+            for slot, i in enumerate(idxs):
+                self.group_of[i] = g0 // self.G
+                self.slot_of[i] = slot
+            tg = max(counts[i] for i in idxs)
             self.group_T.append(min(self.T, -(-max(tg, 1) // 32) * 32))
-        self.sample_rate = self.hdr.sample_rate << (1 if sbr_on else 0)
-        self.is34, self.ds = 0, 0
+        self.sample_rate = self.hdr.sample_rate << probe["sbr"]
+        # ADTS signals SBR implicitly: never the downsampled mode
+        self.is34, self.ds = probe["is34"], 0
         self.S = token_cap
         self.NB = 0
         self.MS = 0
@@ -91,25 +121,6 @@ class QwirePipelinedDecoder:
         self._cap = cap
         self._bufsets = [None, None]
         self._uploaded = [None, None]   # CUDA event per staging set
-
-    def _probe(self, data: bytes):
-        """Native parse of the first two frames -> (lanes, sbr, is34,
-        coupling edges)."""
-        h = self.hdr
-        heap = np.zeros(1 << 16, np.uint8)
-        recs = np.zeros((2, 8, REC_W), np.int32)
-        info = np.zeros(8, np.int32)
-        cur = C.c_int64(0)
-        r = self.parser.parse_qwire(
-            data, min(len(data), 1 << 14), h.sampling_index, h.sample_rate,
-            h.chan_config, heap.ctypes.data_as(C.POINTER(C.c_uint8)),
-            heap.nbytes, C.byref(cur),
-            recs.ctypes.data_as(C.POINTER(C.c_int32)), 2, 8, 0,
-            info.ctypes.data_as(C.POINTER(C.c_int32)), None, None, 0)
-        if r < 0:
-            raise NotImplementedError(
-                "stream 0 needs the Python planner, which is not ported")
-        return int(info[0]), int(info[1]), int(info[2]), int(info[4])
 
     def _buffers(self, bufset: int):
         if self._bufsets[bufset] is None:
@@ -179,6 +190,11 @@ class QwirePipelinedDecoder:
                 raise NotImplementedError(
                     f"stream {gi} of the group uses AFTER_IMDCT coupling, "
                     "which is not ported")
+            if int(info[2]) != self.is34:
+                raise NotImplementedError(
+                    f"stream {gi} of the group: PS band mode is34="
+                    f"{int(info[2])} in a batch of is34={self.is34} (a "
+                    "mid-stream band-mode flip), which is not ported")
             cur = int(cur_c.value)
             if n_real is None or gi < n_real:
                 self.error_count += int(info[3])
@@ -269,3 +285,179 @@ class QwirePipelinedDecoder:
     def audio_seconds(self) -> float:
         spf = 1024 << (not self.ds)
         return sum(fc * spf / self.sample_rate for fc in self.frame_counts)
+
+
+class LcStreamBatchDecoder:
+    """Batched AAC-LC decode: each stream contributes its channel lanes
+    (``lane_block`` per stream, the first ``channels`` of them audio);
+    the whole stream is parsed natively up front, uploaded once and
+    decoded by one IMDCT / overlap-add scan on ``device`` (the card
+    unless the caller passes ``device="cpu"``)."""
+
+    def __init__(self, streams, max_frames: int | None = None,
+                 device="cuda"):
+        self.device = resolve(device)
+        if isinstance(streams, (bytes, bytearray)):
+            streams = [bytes(streams)]
+        self.parser = native.Parser()
+        parsed = [self._parse_one(i, st, max_frames)
+                  for i, st in enumerate(streams)]
+        self.B = len(parsed)
+        self.sample_rate = parsed[0][1]
+        self.channels = parsed[0][2]
+        self.lane_block = lb = max(p[2] for p in parsed)
+        self.frame_counts = [len(p[0]["coeffs"]) for p in parsed]
+        self.T = T = max(self.frame_counts)
+        # shorter streams and narrower layouts pad with silent lanes:
+        # zero spectra, ONLY_LONG sine windows
+        core = {k: np.zeros((T, self.B * lb) + v.shape[2:], v.dtype)
+                for k, v in parsed[0][0].items()}
+        for b, (c, _, lanes) in enumerate(parsed):
+            for k, v in c.items():
+                core[k][:len(v), b * lb:b * lb + lanes] = v
+        self.core = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in core.items()}
+
+    def _parse_one(self, i: int, st: bytes, max_frames: int | None):
+        """-> (core dict with [T, lanes, ...] leaves, rate, lanes) by the
+        native whole-stream parser (ht_parse_stream: ADTS framing,
+        element loop, dequant, prediction, TNS)."""
+        frames = split_adts_stream(st)
+        if not frames:
+            raise ValueError(f"stream {i}: not an ADTS stream")
+        if max_frames is not None:
+            frames = frames[:max_frames]
+        hdr = parse_adts_header(frames[0][:7])
+        r = None
+        if hdr.chan_config and hdr.object_type in (1, 2):
+            layout = TB.CHANNEL_LAYOUT_MAP[hdr.chan_config]
+            r = self.parser.parse_stream(st, hdr.sampling_index, layout,
+                                         len(frames))
+        if r is None:
+            raise NotImplementedError(
+                f"stream {i} needs the Python planner (PCE / CCE / SSR), "
+                "which is not ported")
+        coeffs, meta = r
+        core = dict(coeffs=coeffs, ws=meta[..., 0].astype(np.int64),
+                    wsp=meta[..., 1].astype(np.int64),
+                    kbd=meta[..., 2].astype(np.int64),
+                    kbdp=meta[..., 3].astype(np.int64))
+        return core, hdr.sample_rate, coeffs.shape[1]
+
+    def decode(self):
+        """pcm [T, B * lane_block, 1024] int16 on the device, after the
+        device is done."""
+        saved = torch.zeros((self.B * self.lane_block, 512),
+                            dtype=torch.float32, device=self.device)
+        _, pcm = lc_scan_decode(self.core, saved)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return pcm
+
+    def audio_seconds(self) -> float:
+        return sum(self.frame_counts) * 1024 / self.sample_rate
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous batch front door: bucket streams by decode profile
+# ---------------------------------------------------------------------------
+def decode_batch(streams, device="cuda") -> list:
+    """Decode many streams of possibly different configurations.
+
+    Streams are bucketed by (profile, sample rate, channel config, PS
+    band mode), each bucket decoded batched on ``device`` (the card
+    unless the caller passes ``device="cpu"``; without a card the
+    default raises RuntimeError).  Returns CPU int16 tensors [n, ch] in
+    input order: stereo for HE-AAC v2 (PS) and mono-core HE streams, one
+    channel per lane otherwise; a buffer with no ADTS sync word gives
+    [0, 1].  A stream the port cannot decode raises NotImplementedError
+    naming its index (the JAX package's single-stream fallbacks are not
+    ported).  Each bucket logs, at INFO, its key, streams, frames, audio
+    and wall seconds (also as the record's ``bucket_stats`` dict)."""
+    dev = resolve(device)
+    parser = native.Parser()
+    streams = [bytes(s) for s in streams]
+    results: list = [None] * len(streams)
+    buckets: dict = {}
+    for i, data in enumerate(streams):
+        if len(data) < 7 or data[0] != 0xFF or (data[1] & 0xF0) != 0xF0:
+            # leading garbage: resync on the first real sync word
+            frames = split_adts_stream(data)
+            if not frames:
+                log.warning("decode_batch: stream %d has no ADTS sync "
+                            "word; returning empty", i)
+                results[i] = torch.zeros((0, 1), dtype=torch.int16)
+                continue
+            data = streams[i] = b"".join(frames)
+        hdr = parse_adts_header(data[:7])
+        probe = (parser.probe(data, hdr) if hdr.object_type in (1, 2)
+                 else None)
+        if probe is None:
+            raise NotImplementedError(
+                f"stream {i}: the native probe cannot take it and the "
+                "Python prober is not ported")
+        key = ("he" if probe["sbr"] else "lc", hdr.sampling_index,
+               hdr.chan_config, probe["is34"])
+        buckets.setdefault(key, []).append(i)
+    for key, idxs in buckets.items():
+        _decode_bucket_retry(key, idxs, streams, results, dev)
+    return results
+
+
+def _decode_bucket_retry(key, idxs, streams, results, device,
+                         depth: int = 0):
+    """Decode one bucket; on failure bisect it, so that the stream at
+    fault is named, and raise NotImplementedError for it (the JAX
+    package decodes it with the single-stream decoder or the band-mode
+    flip scan, neither of which is ported)."""
+    try:
+        _decode_bucket(key, [streams[i] for i in idxs], idxs, results,
+                       device)
+        return
+    except Exception as exc:  # noqa: BLE001 - bisect, then name the stream
+        if len(idxs) == 1:
+            raise NotImplementedError(
+                f"stream {idxs[0]}: its batched decode failed "
+                f"({type(exc).__name__}: {exc}) and the single-stream "
+                "decoder that would take it is not ported") from exc
+        if depth == 0:
+            log.warning("decode_batch: bucket %s (%d streams) failed (%s: "
+                        "%s); bisecting to isolate the offender", key,
+                        len(idxs), type(exc).__name__, exc)
+    mid = len(idxs) // 2
+    _decode_bucket_retry(key, idxs[:mid], streams, results, device,
+                         depth + 1)
+    _decode_bucket_retry(key, idxs[mid:], streams, results, device,
+                         depth + 1)
+
+
+def _decode_bucket(key, group, idxs, results, device):
+    t0 = time.perf_counter()
+    if key[0] == "lc":
+        bd = LcStreamBatchDecoder(group, device=device)
+        pcm = bd.decode().cpu()                  # [T, B*lane_block, 1024]
+        ch, lb = bd.channels, bd.lane_block
+        for j, i in enumerate(idxs):
+            lanes = pcm[:bd.frame_counts[j], j * lb:j * lb + ch]
+            results[i] = lanes.permute(0, 2, 1).reshape(-1, ch)
+    else:
+        bd = QwirePipelinedDecoder(group, device=device)
+        outs = [o.cpu() for o in bd.decode()]    # [T, L, 2, 2048] each
+        lps = bd.out_nl
+        for j, i in enumerate(idxs):
+            # groups are length-bucketed: map through the sort permutation
+            pcm = outs[bd.group_of[j]]
+            lane0 = bd.slot_of[j] * bd.nl
+            lanes = pcm[:bd.frame_counts[j], lane0:lane0 + lps]
+            if lps == 1:                         # mono core -> stereo
+                results[i] = lanes[:, 0].permute(0, 2, 1).reshape(-1, 2)
+            else:                                # one channel per lane
+                results[i] = torch.stack(
+                    [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1)
+    stats = dict(key=key, streams=len(idxs), frames=sum(bd.frame_counts),
+                 audio_s=bd.audio_seconds(),
+                 wall_s=time.perf_counter() - t0)
+    log.info("decode_batch: bucket %s: %d streams, %d frames, %.3f s of "
+             "audio in %.6f s", key, stats["streams"], stats["frames"],
+             stats["audio_s"], stats["wall_s"],
+             extra={"bucket_stats": stats})

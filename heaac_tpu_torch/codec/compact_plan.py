@@ -1,7 +1,7 @@
-"""PS mixing prologue on device (20-band).
+"""PS mixing prologue on device (20- and 34-band).
 
 Counterpart: ``heaac_tpu/codec/compact_plan.py`` — init_ps_hist and
-expand_ps with is34=0: HA/HB LUT H-matrices with IPD/OPD phase
+expand_ps: HA/HB LUT H-matrices with IPD/OPD phase
 smoothing, the carried H row 0 and phase histories, and the
 envelope-border interpolation weights Ws/We (aacps.c:816-935).
 """
@@ -40,8 +40,6 @@ def init_ps_hist(B: int, device) -> dict:
 def expand_ps(pc: dict, hist: dict, is34: int = 0):
     """pc_i [B,PC_I_N], pc_b [B,PC_B_N] (int) + hist -> (ps plan dict for
     ops/ps, new hist)."""
-    if is34:
-        raise NotImplementedError("34-band parametric stereo is not ported")
     pc_i, pc_b = pc["pc_i"], pc["pc_b"]
     dev = pc_i.device
     B = pc_i.shape[0]
@@ -71,7 +69,7 @@ def expand_ps(pc: dict, hist: dict, is34: int = 0):
     ipd_h, opd_h = hist["ipd_hist"], hist["opd_hist"]
     rows_re = [H[:, 0, 0]]
     rows_im = [H[:, 1, 0]]
-    npar_mask = (b34 < TB.NR_PAR_BANDS[0])[:, :, None]
+    npar_mask = (b34 < TB.NR_PAR_BANDS[is34])[:, :, None]
     zpad = torch.zeros((B, 17), dtype=f32, device=dev)
     pad = lambda a: torch.cat([a, zpad], 1)  # noqa: E731
     for e in range(5):
@@ -129,7 +127,7 @@ def expand_ps(pc: dict, hist: dict, is34: int = 0):
     Ws = torch.cat([torch.where(valid, 1.0 - t, 0.0), zrow], 1)
     We = torch.cat([zrow, torch.where(valid, t, 0.0)], 1)
 
-    nrb = TB.NR_BANDS[0]
+    nrb = TB.NR_BANDS[is34]
     k91 = torch.arange(91, device=dev)[None, :]
     topx = (top + nrb - 64).clamp(0, 91)[:, None]
     top_mask = torch.where(on[:, None], (k91 < topx).to(f32),

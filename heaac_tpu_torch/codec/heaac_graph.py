@@ -1,12 +1,13 @@
 """The per-frame HE-AAC v2 device graph and the whole-stream scan.
 
 Counterpart: ``heaac_tpu/codec/heaac_graph.py`` — HeaacState/init_state,
-heaac_frame (is34=0, downsampled=0, with the ps_on gate and the PS state
-freeze), init_qwire_carry, heaac_frame_qwire, _qwire_decode_all_coeffs
-(MS=0) and qwire_scan_decoder.  One frame for B lanes: core IMDCT /
-overlap-add -> QMF analysis -> SBR HF reconstruction -> parametric
-stereo -> QMF synthesis.  The scan is a Python loop over T frames that
-rounds to int16 inside the loop.
+heaac_frame (is34 0 or 1, downsampled=0, with the ps_on gate and the PS
+state freeze), init_qwire_carry, heaac_frame_qwire,
+_qwire_decode_all_coeffs (MS=0) and qwire_scan_decoder; and the AAC-LC
+scan (``heaac_tpu/codec/batch.py`` _make_lc_scan_decoder, couple=False).
+One frame for B lanes: core IMDCT / overlap-add -> QMF analysis -> SBR
+HF reconstruction -> parametric stereo -> QMF synthesis.  The scans are
+Python loops over T frames that round to int16 inside the loop.
 """
 from __future__ import annotations
 
@@ -51,10 +52,10 @@ def init_state(B: int, device) -> HeaacState:
 
 
 def _require_static(is34: int, downsampled: int) -> None:
-    if is34 or downsampled:
+    if is34 not in (0, 1) or downsampled:
         raise NotImplementedError(
-            "only 20-band PS at full-rate synthesis (is34=0, "
-            "downsampled=0) is ported")
+            "only one PS band mode per scan (is34 0 or 1) at full-rate "
+            "synthesis (downsampled=0) is ported")
 
 
 def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
@@ -79,12 +80,13 @@ def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
         X_high, gain, q_m, s_m, state.g_temp, state.q_temp, plan)
     X, y_cur = sbr.x_gen(X_low, Y_m, state.Y_prev, env_on, plan)
 
-    lbuf, ps_in_buf = ps.hybrid_analysis(X, state.ps_in_buf)
+    lbuf, ps_in_buf = ps.hybrid_analysis(X, state.ps_in_buf, is34)
     ps_state = dict(delay=state.ps_delay, ap=state.ps_ap,
                     trans=state.ps_trans)
-    lmix, rmix, ps_new = ps.decorrelate_and_mix(lbuf, ps_state, ps_plan)
-    Lp = ps.hybrid_synthesis(lmix)
-    Rp = ps.hybrid_synthesis(rmix)
+    lmix, rmix, ps_new = ps.decorrelate_and_mix(lbuf, ps_state, ps_plan,
+                                                 is34)
+    Lp = ps.hybrid_synthesis(lmix, is34)
+    Rp = ps.hybrid_synthesis(rmix, is34)
     on = ps_plan["ps_on"] > 0
     Lx = torch.where(on[:, None, None, None], Lp, X)
     Rx = torch.where(on[:, None, None, None], Rp, X)
@@ -181,3 +183,19 @@ def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
                                        is34, downsampled, rows_pair)
         pcm[t] = to_int16(out)
     return carry, pcm
+
+
+def lc_scan_decode(core_seq: dict, saved):
+    """The AAC-LC whole-stream scan: core_seq coeffs [T, L, 1024] f32 and
+    ws / wsp / kbd / kbdp [T, L] int, saved [L, 512] -> (saved,
+    pcm int16 [T, L, 1024])."""
+    m2048, m256, bank = core_consts(saved.device)
+    coeffs = core_seq["coeffs"]
+    T, L = coeffs.shape[:2]
+    pcm = torch.empty((T, L, 1024), dtype=torch.int16, device=saved.device)
+    for t in range(T):
+        out, saved = core_frame(coeffs[t], saved, core_seq["ws"][t],
+                                core_seq["wsp"][t], core_seq["kbd"][t],
+                                core_seq["kbdp"][t], m2048, m256, bank)
+        pcm[t] = to_int16(out)
+    return saved, pcm

@@ -2,7 +2,7 @@
 
 Counterpart: ``heaac_tpu/codec/qwire.py`` device half — decode_coeffs_jax
 (byte-token spectrum decode), init_qcarry and expand_frame_jax with
-is34=0, rows_pair=0: per-frame side info + carried state -> core meta,
+is34 in (0, 1), rows_pair=0: per-frame side info + carried state -> core meta,
 the dense SBR plan (sbr_dequant / mapping / chirp by LUT gathers), and
 the PS codes (raw-bits row decode via ops/ps_huff + band remap).  The
 wire layout constants live in ``host.py``.  Every integer output and
@@ -35,9 +35,9 @@ def _luts(device: torch.device) -> dict:
     out = {k: torch.from_numpy(v).to(device)
            for k, v in TB.qwire_luts().items()}
     out["remap"] = torch.from_numpy(
-        TB.remap_tables(True)[0].astype(np.int64)).to(device)
+        TB.remap_tables(True).astype(np.int64)).to(device)      # [is34]
     out["remap_p"] = torch.from_numpy(
-        TB.remap_tables(False)[0].astype(np.int64)).to(device)
+        TB.remap_tables(False).astype(np.int64)).to(device)
     out["phi_re"] = torch.tensor([1, 0, -1, 0], dtype=torch.float32,
                                  device=device)
     out["phi_im"] = torch.tensor([0, 1, 0, -1], dtype=torch.float32,
@@ -160,9 +160,10 @@ def init_qcarry(B: int, device) -> dict:
 def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
     """rec [B, REC_W] int + heap + carry -> (core_meta, sbr dense plan,
     ps codes {pc_i, pc_b}, new carry) for one frame (expand_frame_jax)."""
-    if is34 or rows_pair:
+    if is34 not in (0, 1) or rows_pair:
         raise NotImplementedError(
-            "only is34=0, rows_pair=0 (mono-core 20-band PS) is ported")
+            "only is34 0 or 1 with rows_pair=0 (mono-core PS in one band "
+            "mode) is ported")
     dev = heap.device
     Lt = _luts(dev)
     f32 = torch.float32
@@ -549,15 +550,15 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
                                         rounding_mode="floor")
         return torch.where(den > 0, q, 0)
 
-    iid = remap_dev(iid_n, pknd & 3, Lt["remap"])
-    icc = remap_dev(icc_n, (pknd >> 2) & 3, Lt["remap"])
+    iid = remap_dev(iid_n, pknd & 3, Lt["remap"][is34])
+    icc = remap_dev(icc_n, (pknd >> 2) & 3, Lt["remap"][is34])
     pkind = (nipd >= 11).long() + (nipd >= 17).long()
     j17 = torch.arange(17, device=dev)[None, None, :]
     pad = torch.zeros((B, 5, 17), dtype=torch.long, device=dev)
 
     def part_remap(rows):
         full = torch.cat([rows, pad], 2)
-        out = remap_dev(full, pkind, Lt["remap_p"])[:, :, :17]
+        out = remap_dev(full, pkind, Lt["remap_p"][is34])[:, :, :17]
         return torch.where(j17 < nipd[:, None, None], out, 0)
 
     ipd = part_remap(ipd_n)

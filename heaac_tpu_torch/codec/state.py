@@ -1,11 +1,14 @@
 """Decode carry <-> numpy, in the JAX package's layout.
 
 The decoder has no weights: its "parameters" are the constant tables and
-the carry that ``init_qwire_carry`` builds, ``(HeaacState, ps_hist,
-qwire carry)``.  These two functions move that carry between the port
-and the JAX package's numpy form (float32 / int32 leaves, ``ps_pcb``
-int8), so tests can start both sides from the same mid-stream state and
-compare the carries after T frames.
+the carries.  The HE carry is what ``init_qwire_carry`` builds,
+``(HeaacState, ps_hist, qwire carry)``; its PS allpass state keeps 50
+rows in both band modes (the 20-band mode uses rows :30).  The AAC-LC
+carry is the overlap buffer ``saved`` [L, 512] of ``lc_scan_decode``.
+These two functions move either carry between the port and the JAX
+package's numpy form (float32 / int32 leaves, ``ps_pcb`` int8), so tests
+can start both sides from the same mid-stream state and compare the
+carries after T frames.
 """
 from __future__ import annotations
 
@@ -29,7 +32,10 @@ def _tree(x, fn):
 
 def carry_from_numpy(tree, device):
     """(state, ps_hist, qcarry) with numpy leaves — state a HeaacState-like
-    NamedTuple or a dict of its fields — -> the port's carry."""
+    NamedTuple or a dict of its fields — -> the port's HE carry; an array
+    (the LC ``saved``) -> a tensor."""
+    if not isinstance(tree, tuple):
+        return _to_tensor(tree, device)
     state, ph, qc = tree
     fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
     conv = lambda a: _to_tensor(a, device)  # noqa: E731
@@ -43,8 +49,11 @@ def _to_numpy(t):
 
 
 def carry_to_numpy(carry):
-    """The port's carry -> (state dict, ps_hist dict, qcarry dict) of
-    numpy arrays with the JAX package's dtypes."""
+    """The port's HE carry -> (state dict, ps_hist dict, qcarry dict) of
+    numpy arrays with the JAX package's dtypes; the LC ``saved`` tensor ->
+    a float32 array."""
+    if isinstance(carry, torch.Tensor):
+        return _to_numpy(carry)
     state, ph, qc = carry
     qn = _tree(qc, _to_numpy)
     qn["ps_pcb"] = qn["ps_pcb"].astype(np.int8)

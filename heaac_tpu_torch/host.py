@@ -1,7 +1,8 @@
 """Host-only numpy helpers of the qwire path.
 
-Counterparts: ADTS header parse (heaac_tpu/bitstream/adts.py),
-``_count_adts_frames`` (codec/batch.py), and the qwire wire-format
+Counterparts: ADTS header parse and ``split_adts_stream``
+(heaac_tpu/bitstream/adts.py), ``_count_adts_frames`` (codec/batch.py),
+and the qwire wire-format
 constants and helpers (codec/qwire.py: token set, record layout, side /
 header / PS block layout, ``silence_lane``, ``spec_static_args``).
 """
@@ -52,6 +53,7 @@ E, M = 5, 48
 
 
 class AdtsHeader(NamedTuple):
+    object_type: int          # ADTS profile + 1 (1 Main, 2 LC)
     sampling_index: int
     sample_rate: int
     chan_config: int
@@ -68,9 +70,34 @@ def parse_adts_header(b: bytes) -> AdtsHeader:
     flen = ((b[3] & 3) << 11) | (b[4] << 3) | (b[5] >> 5)
     if flen < 7:
         raise ValueError(f"bad ADTS frame length {flen}")
-    return AdtsHeader(sampling_index=si, sample_rate=int(SAMPLE_RATES[si]),
+    return AdtsHeader(object_type=(b[2] >> 6) + 1, sampling_index=si,
+                      sample_rate=int(SAMPLE_RATES[si]),
                       chan_config=((b[2] & 1) << 2) | (b[3] >> 6),
                       frame_length=flen)
+
+
+def split_adts_stream(data: bytes) -> list:
+    """Whole ADTS frames of ``data`` (header included), resynchronizing
+    on the 0xFFF sync word past garbage and past headers that do not
+    parse; a truncated last frame ends the walk (adts.split_adts_stream,
+    aac_ac3_parser.c:44-48)."""
+    frames = []
+    pos = 0
+    n = len(data)
+    while pos + 7 <= n:
+        if data[pos] == 0xFF and (data[pos + 1] & 0xF6) == 0xF0:
+            try:
+                flen = parse_adts_header(data[pos:pos + 7]).frame_length
+            except ValueError:
+                pos += 1
+                continue
+            if pos + flen > n:
+                break
+            frames.append(data[pos:pos + flen])
+            pos += flen
+        else:
+            pos += 1
+    return frames
 
 
 def count_adts_frames(data: bytes) -> int:

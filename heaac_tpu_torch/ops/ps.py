@@ -1,10 +1,12 @@
-"""Batched parametric stereo (20-band mode).
+"""Batched parametric stereo (20- and 34-band modes).
 
 Counterpart: ``heaac_tpu/ops/ps_jax.py`` — hybrid_analysis,
 decorrelate_and_mix, hybrid_synthesis (aacps.c:283-992).  The serial
 transient detector + allpass chain inside ``decorrelate_and_mix`` is
-kernel K1 (``ops/ps_decorrelate.py``).  The 34-band mode (is34=1) is not
-ported yet.
+kernel K1 (``ops/ps_decorrelate.py``) in both modes: 30 allpass bands
+at is34=0, 50 at is34=1.  (The JAX package runs the 50-band case through
+its lax.scan pair, ``ps_jax._decorrelate_scans``: the Pallas kernel's
+50-row block did not fit the TPU's VMEM budget.)
 """
 from __future__ import annotations
 
@@ -14,11 +16,6 @@ import torch
 
 from .. import tables as TB
 from .ps_decorrelate import decorrelate_seq
-
-
-def _require_20(is34: int) -> None:
-    if is34:
-        raise NotImplementedError("34-band parametric stereo is not ported")
 
 
 @functools.cache
@@ -53,14 +50,23 @@ def _hybrid_cx(w, filt):
 def hybrid_analysis(L, in_buf, is34: int = 0):
     """L [B,2,38,64], in_buf [B,5,6,2] -> (lbuf [B,91,32,2], new in_buf)
     (aacps.c:359-395)."""
-    _require_20(is34)
-    c = consts(0, L.device)
+    c = consts(is34, L.device)
     lin = torch.stack([L[:, 0, :, :5].transpose(1, 2),
                        L[:, 1, :, :5].transpose(1, 2)], -1)   # [B,5,38,2]
     full = torch.cat([in_buf, lin], 2)                        # [B,5,44,2]
     idx = (torch.arange(32, device=L.device)[:, None]
            + torch.arange(13, device=L.device)[None, :])
     w = full[:, :, idx]                                       # [B,5,32,13,2]
+
+    if is34:
+        # QMF bands 0..4 -> 12+8+4+4+4 complex sub-bands (aacps.c:368-379)
+        parts = [_hybrid_cx(w[:, bi], c[f]) for bi, f in enumerate(
+            ("f34_0", "f34_1", "f34_2", "f34_2", "f34_2"))]
+        lbuf_re = torch.cat([p[0] for p in parts]
+                            + [L[:, 0, :32, 5:64].transpose(1, 2)], 1)
+        lbuf_im = torch.cat([p[1] for p in parts]
+                            + [L[:, 1, :32, 5:64].transpose(1, 2)], 1)
+        return torch.stack([lbuf_re, lbuf_im], -1), full[:, :, 32:38]
 
     s_re, s_im = _hybrid_cx(w[:, 0], c["f20"])
     b0_re = torch.stack([s_re[:, 6], s_re[:, 7], s_re[:, 0], s_re[:, 1],
@@ -99,8 +105,7 @@ def decorrelate_and_mix(lbuf, state, plan, is34: int = 0):
     lbuf [B,91,32,2]; state dict delay [B,91,14,2], ap [B,50,3,5,2],
     trans [B,34,3]; plan H [B,2,6,34,4], Ws/We [B,6,32], ipd_on [B],
     top_mask [B,91] -> (lmix, rmix [B,91,32,2], new_state)."""
-    _require_20(is34)
-    c = consts(0, lbuf.device)
+    c = consts(is34, lbuf.device)
     napb = c["napb"]
     tm = plan["top_mask"][:, :, None, None]
     delay_hist = state["delay"] * tm
@@ -150,7 +155,8 @@ def decorrelate_and_mix(lbuf, state, plan, is34: int = 0):
     rm_re = h12r * l_re + h22r * r_re - h12i * l_im - h22i * r_im
     rm_im = h12r * l_im + h22r * r_im + h12i * l_re + h22i * r_re
 
-    ap_new = torch.cat([ap_new, state["ap"][:, napb:]], 1)
+    if napb < 50:  # the state keeps the 34-band row count
+        ap_new = torch.cat([ap_new, state["ap"][:, napb:]], 1)
     new_state = dict(delay=new_delay, ap=ap_new, trans=ntrans)
     return (torch.stack([lm_re, lm_im], -1), torch.stack([rm_re, rm_im], -1),
             new_state)
@@ -158,10 +164,15 @@ def decorrelate_and_mix(lbuf, state, plan, is34: int = 0):
 
 def hybrid_synthesis(buf, is34: int = 0):
     """[B,91,32,2] -> [B,2,38,64] (aacps.c:397-445)."""
-    _require_20(is34)
-    first3 = torch.stack([buf[:, 0:6].sum(1), buf[:, 6:8].sum(1),
-                          buf[:, 8:10].sum(1)], 1)            # [B,3,32,2]
-    full = torch.cat([first3, buf[:, 10:71]], 1)              # [B,64,32,2]
+    if is34:
+        first = torch.stack([buf[:, 0:12].sum(1), buf[:, 12:20].sum(1),
+                             buf[:, 20:24].sum(1), buf[:, 24:28].sum(1),
+                             buf[:, 28:32].sum(1)], 1)        # [B,5,32,2]
+        full = torch.cat([first, buf[:, 32:91]], 1)           # [B,64,32,2]
+    else:
+        first = torch.stack([buf[:, 0:6].sum(1), buf[:, 6:8].sum(1),
+                             buf[:, 8:10].sum(1)], 1)         # [B,3,32,2]
+        full = torch.cat([first, buf[:, 10:71]], 1)           # [B,64,32,2]
     X = full.transpose(1, 2)                                  # [B,32,64,2]
     X = torch.nn.functional.pad(X, (0, 0, 0, 0, 0, 6))        # [B,38,64,2]
     return torch.stack([X[..., 0], X[..., 1]], 1)

@@ -43,8 +43,9 @@ SO = os.path.join(BUILD_DIR, "libps_decorrelate.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel launches made by decorrelate_seq (reset by callers that count)
-launches = 0
+# kernel launches made by decorrelate_seq, by napb (30: the 20-band PS
+# path, 50: the 34-band path); callers that count reset them
+launches = {30: 0, 50: 0}
 
 _PEAK = float(TB.PEAK_DECAY_FACTOR)
 _ASM = float(TB.A_SMOOTH)
@@ -242,7 +243,6 @@ def _check(name, t, shape, device):
 def decorrelate_seq(power, in_re, in_im, trans, ap, ag, qf):
     """K1: the plain version for CPU tensors, the CUDA kernel for CUDA
     tensors (raises on anything the kernel does not take)."""
-    global launches
     dev = power.device
     if dev.type == "cpu":
         return decorrelate_plain(power, in_re, in_im, trans, ap, ag, qf)
@@ -271,7 +271,7 @@ def decorrelate_seq(power, in_re, in_im, trans, ap, ag, qf):
     if rc != 0:
         raise RuntimeError(f"ps_decorrelate kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
+    launches[napb] += 1
     return tgain, ap_out, new_trans, new_ap
 
 

@@ -48,6 +48,20 @@ SAMPLE_RATES = np.array(
 
 ONLY_LONG, LONG_START, EIGHT_SHORT, LONG_STOP = range(4)
 
+TYPE_SCE, TYPE_CPE, TYPE_CCE, TYPE_LFE = range(4)
+
+# default element layout (lane order) of ADTS channel configs 1..7
+CHANNEL_LAYOUT_MAP = {
+    1: [(TYPE_SCE, 0)],
+    2: [(TYPE_CPE, 0)],
+    3: [(TYPE_CPE, 0), (TYPE_SCE, 0)],
+    4: [(TYPE_CPE, 0), (TYPE_SCE, 0), (TYPE_SCE, 1)],
+    5: [(TYPE_CPE, 0), (TYPE_SCE, 0), (TYPE_CPE, 1)],
+    6: [(TYPE_CPE, 0), (TYPE_SCE, 0), (TYPE_LFE, 0), (TYPE_CPE, 1)],
+    7: [(TYPE_CPE, 0), (TYPE_SCE, 0), (TYPE_LFE, 0), (TYPE_CPE, 2),
+        (TYPE_CPE, 1)],
+}
+
 CODEBOOK_INFO = {
     1: (4, 1, True), 2: (4, 1, True),
     3: (4, 2, False), 4: (4, 2, False),

@@ -6,6 +6,7 @@ benchdata streams) and handed to both the JAX function and its port.
 import ctypes
 import functools
 import gc
+import importlib.util
 import os
 import sys
 
@@ -36,24 +37,61 @@ def release_jax_memory():
     _drop_compiled_jax()
 
 
+@functools.cache
+def jit_ref(fn, **static):
+    """``jax.jit`` of a JAX reference function with its static keyword
+    arguments bound.  One XLA compile per function and input shapes,
+    where calling it eagerly compiles every primitive on its own (several
+    times slower, and each compile is too short for the persistent
+    compilation cache that tests/conftest.py sets up to keep)."""
+    import jax
+    return jax.jit(functools.partial(fn, **static))
+
+
+def golden_tool():
+    """tools/make_torch_golden.py as a module: the goldens' file names,
+    the mixed decode_batch list and the JAX writers (which import the
+    JAX package only when called)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_golden", os.path.join(REPO, "tools",
+                                          "make_torch_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the bundled streams by kind: 20-band HE-AAC v2 (benchdata), 34-band
+# HE-AAC v2 (tools/make_torch_streams.py) and their AAC-LC cores
+STREAM_FILES = {
+    "he20": "benchdata/heaac_bench_stream_{}.aac",
+    "he34": "tests/data/heaac_v2_34band_{}.aac",
+    "lc": "benchdata/lc_core_24k_{}.aac",
+}
+
+
+def streams_of(kind: str, n: int) -> list:
+    """Streams 0..n-1 (mod 8) of one kind, as bytes."""
+    return [open(os.path.join(REPO, STREAM_FILES[kind].format(i % 8)),
+                 "rb").read() for i in range(n)]
+
+
 def bench_streams(n: int) -> list:
-    return [open(os.path.join(REPO, "benchdata",
-                              f"heaac_bench_stream_{i % 8}.aac"), "rb").read()
-            for i in range(n)]
+    return streams_of("he20", n)
 
 
 @functools.cache
-def port_parse(n: int, T: int) -> dict:
-    """Native parse of benchdata streams 0..n-1 (first T frames) through
-    the port: heap bytes, records [T, n, 4] and the static decode sizes."""
+def port_parse(n: int, T: int, kind: str = "he20") -> dict:
+    """Native parse of streams 0..n-1 of an HE kind (first T frames)
+    through the port: heap bytes, records [T, n, 4], the static decode
+    sizes and the PS band mode."""
     from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
-    streams = bench_streams(n)
+    streams = streams_of(kind, n)
     dec = QwirePipelinedDecoder(streams, group_streams=n, max_frames=T,
                                 device="cpu")
     heap, cur, recs = dec._parse_group(streams, 0, T)
     return dict(heap=heap[:cur + 4096].copy(), recs=recs[:T].copy(),
                 S=dec.S, NB=dec.NB, NS=dec.NS, SEC=dec.SEC,
-                rate_idx=dec.rate_idx)
+                rate_idx=dec.rate_idx, is34=dec.is34)
 
 
 def t(a, dtype=None):
@@ -103,20 +141,37 @@ def assert_peak_close(got, want, rel: float, what=""):
     assert err <= rel * peak, f"{what}: max diff {err} > {rel} x peak {peak}"
 
 
+def assert_tree_close(got, want, rel: float, what=""):
+    """Nested dicts / tuples of arrays (decode carries): the same keys,
+    integers exactly, floats within ``rel`` of each tensor's peak."""
+    if isinstance(want, (dict, tuple)):
+        keys = want.keys() if isinstance(want, dict) else range(len(want))
+        if isinstance(want, dict):
+            assert set(got) == set(want), what
+        assert len(got) == len(want), what
+        for k in keys:
+            assert_tree_close(got[k], want[k], rel, f"{what}.{k}")
+    elif n(want).dtype.kind == "f":
+        assert_peak_close(got, want, rel, what)
+    else:
+        assert_exact(got, want, what)
+
+
 @functools.cache
-def port_trace(n_streams: int, T: int):
-    """Per-frame port expansion of real streams: list of (core_meta, plan,
-    pc, ps_plan) numpy dicts, plus the carries before each frame."""
+def port_trace(n_streams: int, T: int, kind: str = "he20"):
+    """Per-frame port expansion of real streams: list of dicts of numpy
+    dicts (core_meta, plan, pc, ps_plan), one per frame."""
     from heaac_tpu_torch.codec import compact_plan, qwire
-    p = port_parse(n_streams, T)
+    p = port_parse(n_streams, T, kind)
     heap = t(p["heap"])
     recs = t(p["recs"])
     qc = qwire.init_qcarry(n_streams, "cpu")
     ph = compact_plan.init_ps_hist(n_streams, "cpu")
     frames = []
     for f in range(T):
-        core_meta, plan, pc, qc = qwire.expand_frame(heap, recs[f], qc)
-        ps_plan, ph = compact_plan.expand_ps(pc, ph)
+        core_meta, plan, pc, qc = qwire.expand_frame(heap, recs[f], qc,
+                                                     p["is34"])
+        ps_plan, ph = compact_plan.expand_ps(pc, ph, p["is34"])
         frames.append(dict(core_meta=n(core_meta), plan=n(plan), pc=n(pc),
                            ps_plan=n(ps_plan)))
     return frames

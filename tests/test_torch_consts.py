@@ -37,6 +37,9 @@ def test_aac_tables():
     same(TB.cbrt_tab(), jT.cbrt_tab())
     same(TB.SAMPLE_RATES, jT.SAMPLE_RATES)
     assert TB.CODEBOOK_INFO == jT.CODEBOOK_INFO
+    assert TB.CHANNEL_LAYOUT_MAP == jT.CHANNEL_LAYOUT_MAP
+    assert (TB.TYPE_SCE, TB.TYPE_CPE, TB.TYPE_CCE, TB.TYPE_LFE) == (
+        jT.TYPE_SCE, jT.TYPE_CPE, jT.TYPE_CCE, jT.TYPE_LFE)
     for cb in range(1, 12):
         same(TB.codebook_tuples(cb), jT.codebook_tuples(cb))
     for si in range(12):

@@ -14,7 +14,7 @@ import torch
 from heaac_tpu.codec.core import _consts, core_frame as jcore_frame
 from heaac_tpu_torch.codec import core
 from test_torch_common import (  # noqa: F401 (autouse fixture)
-    assert_peak_close, release_jax_memory, t)
+    assert_peak_close, jit_ref, release_jax_memory, t)
 
 TOL = 1e-5
 
@@ -31,7 +31,7 @@ def test_core_frame_matches_jax(ws):
     win = np.full(B, ws, np.int32)
     wsp, kbd, kbdp = (np.array(c, np.int32) for c in zip(*combos))
     m2048, m256, bank = _consts()
-    j_out, j_saved = jcore_frame(
+    j_out, j_saved = jit_ref(jcore_frame)(
         jnp.asarray(coeffs), jnp.asarray(saved), jnp.asarray(win),
         jnp.asarray(wsp), jnp.asarray(kbd), jnp.asarray(kbdp),
         m2048, m256, bank)

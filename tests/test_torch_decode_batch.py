@@ -1,0 +1,97 @@
+"""``heaac_tpu_torch.decode_batch`` on the CPU: the mixed list of
+tools/make_torch_golden.py (20-band and 34-band HE-AAC v2, AAC-LC and a
+buffer with no sync word, interleaved) against the committed JAX golden
+(tests/data/decode_batch_golden_jax.npz, written by that tool; JAX does
+not run here), within 2 int16 LSB, each output in its input's place;
+streams the port cannot take raise NotImplementedError naming them; the
+ADTS splitter equals the JAX package's."""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from heaac_tpu.bitstream.adts import split_adts_stream as jax_split
+from heaac_tpu_torch import decode_batch
+from heaac_tpu_torch.host import split_adts_stream
+from test_torch_common import golden_tool, streams_of
+
+T = 8          # frames of each stream the test decodes
+TOL_LSB = 2
+
+
+def _head(data: bytes, frames: int) -> bytes:
+    return b"".join(split_adts_stream(data)[:frames])
+
+
+def test_decode_batch_cpu_matches_golden():
+    tool = golden_tool()
+    named = tool.batch_streams()
+    with np.load(tool.BATCH_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    assert list(gold["names"]) == [name for name, _ in named]
+    outs = decode_batch([_head(d, T) if name != "garbage" else d
+                         for name, d in named], device="cpu")
+    assert len(outs) == len(named)
+    for k, ((name, _), pcm) in enumerate(zip(named, outs)):
+        assert isinstance(pcm, torch.Tensor) and pcm.device.type == "cpu"
+        assert pcm.dtype == torch.int16, name
+        if name == "garbage":
+            assert tuple(pcm.shape) == (0, 1) and int(gold[f"n_{k}"]) == 0
+            continue
+        ch = 1 if name.startswith("lc") else 2
+        rows = T * tool.frame_samples(name)
+        assert tuple(pcm.shape) == (rows, ch), name
+        want = gold[f"pcm_{k}"][:rows]
+        got = pcm.numpy().astype(np.int32)
+        assert np.abs(want).max() > 1000, name
+        assert np.abs(got - want).max() <= TOL_LSB, name
+
+
+def _flip_stream(frames: int, flip_at: int) -> bytes:
+    """An HE-AAC v2 stream whose PS switches from 20 to 34 bands at frame
+    ``flip_at`` (the JAX package decodes it with its band-mode flip
+    scan, which the port does not have)."""
+    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
+                                            splice_sbr_into_lc)
+    core = _head(streams_of("lc", 1)[0], frames)
+    ps = PsStreamWriter(seed=12, switch_at={flip_at: (2, 2)})
+    # leave room in the FIL element for the SBR data beside the 34-band
+    # parameters, as tools/make_torch_streams.py does
+    ps.ps_payload = functools.partial(PsStreamWriter.ps_payload, ps,
+                                      max_bytes=160)
+    w = SbrStreamWriter(core_rate=24000, is_cpe=False, env_hi_shift=-12,
+                        seed=11, ps_writer=ps)
+    return splice_sbr_into_lc(core, w)
+
+
+def test_decode_batch_names_the_stream_it_cannot_take():
+    streams = [b"no sync word here", _head(streams_of("he20", 1)[0], 4),
+               _flip_stream(4, 2)]
+    with pytest.raises(NotImplementedError, match=r"^stream 2:") as ei:
+        decode_batch(streams, device="cpu")
+    assert ei.value.__cause__ is not None
+
+
+@pytest.mark.parametrize("case", ["clean", "leading_garbage",
+                                  "corrupt_header", "truncated_tail",
+                                  "bad_rate_index"])
+def test_split_adts_stream_matches_jax(case):
+    data = bytearray(_head(streams_of("he34", 1)[0], 6))
+    rng = np.random.default_rng(len(case))
+    if case == "leading_garbage":
+        # no 0xFF in the noise; a sync word whose header gives length 1
+        data = bytearray(rng.integers(0, 255, 300).astype(np.uint8)
+                         .tobytes()) + b"\xff\xf1\x50\x80\x00\x20\x00" + data
+    elif case == "corrupt_header":
+        flen = ((data[3] & 3) << 11) | (data[4] << 3) | (data[5] >> 5)
+        data[flen + 3] &= 0xFC                 # frame 1 length < 7
+        data[flen + 4] = data[flen + 5] = 0
+    elif case == "truncated_tail":
+        data = data[:-57]
+    elif case == "bad_rate_index":
+        data[2] = (data[2] & 0xC3) | (13 << 2)  # index 13: no rate
+    got = split_adts_stream(bytes(data))
+    want = jax_split(bytes(data))
+    assert got == want
+    assert len(want) >= 4

@@ -3,8 +3,10 @@ CPU; whether a card is present is decided inside the test."""
 import pytest
 import torch
 
-from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
-from test_torch_common import bench_streams
+from heaac_tpu_torch import decode_batch
+from heaac_tpu_torch.codec.batch import (LcStreamBatchDecoder,
+                                         QwirePipelinedDecoder)
+from test_torch_common import bench_streams, streams_of
 
 
 def test_decoder_defaults_to_the_card():
@@ -17,3 +19,14 @@ def test_decoder_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="is_available"):
             QwirePipelinedDecoder(streams, group_streams=1, max_frames=2)
+
+
+def test_decode_batch_and_lc_decoder_default_to_the_card():
+    lc = streams_of("lc", 1)
+    if torch.cuda.is_available():
+        assert LcStreamBatchDecoder(lc, max_frames=2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            LcStreamBatchDecoder(lc, max_frames=2)
+        with pytest.raises(RuntimeError, match="is_available"):
+            decode_batch(lc)

@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA card (marker ``gpu``; they skip without
-one): kernel K1 against its plain version at the main path's shapes, and
-a short main-path decode on the card against the port's CPU decode.
+one): kernel K1 against its plain version at the main path's shapes, a
+short main-path decode on the card against the port's CPU decode, and
+decode_batch on the card against its CPU run for a stream of each kind.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from heaac_tpu_torch import decode_batch
 from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+from heaac_tpu_torch.host import split_adts_stream
 from heaac_tpu_torch.ops import ps_decorrelate as K
-from test_torch_common import bench_streams
+from test_torch_common import bench_streams, streams_of
 
 pytestmark = pytest.mark.gpu
 NAMES = ("power", "in_re", "in_im", "trans", "ap", "ag", "qf")
@@ -32,9 +35,9 @@ def test_k1_kernel_matches_plain(cuda, B, napb):
     """Bit for bit, also where the last tile of lanes is ragged."""
     inp = K.random_inputs(B, napb, seed=napb)
     args = [torch.from_numpy(inp[k]).to(cuda).contiguous() for k in NAMES]
-    before = K.launches
+    before = dict(K.launches)
     got = K.decorrelate_seq(*args)
-    assert K.launches == before + 1
+    assert K.launches == {**before, napb: before[napb] + 1}
     ref = K.decorrelate_plain(*args)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
@@ -44,10 +47,27 @@ def test_k1_kernel_matches_plain(cuda, B, napb):
 
 def test_main_path_on_card_matches_cpu(cuda):
     streams = bench_streams(4)
-    before = K.launches
+    before = K.launches[30]
     gpu = QwirePipelinedDecoder(streams, group_streams=4, max_frames=8,
                                 device=cuda).decode()[0].cpu().numpy()
-    assert K.launches - before >= 8
+    assert K.launches[30] - before == 8
     cpu = QwirePipelinedDecoder(streams, group_streams=4, max_frames=8,
                                 device="cpu").decode()[0].numpy()
     assert np.abs(gpu.astype(np.int32) - cpu).max() <= 2
+
+
+def test_decode_batch_on_card_matches_cpu(cuda):
+    """One 20-band, one 34-band and one LC stream (8 frames each) and a
+    buffer with no sync word: the card's output within 2 LSB of the
+    CPU's, K1 launched once per frame in each band mode."""
+    streams = [b"".join(split_adts_stream(streams_of(kind, 1)[0])[:8])
+               for kind in ("he20", "he34", "lc")] + [b"no sync word"]
+    before = dict(K.launches)
+    gpu = decode_batch(streams)
+    assert {napb: K.launches[napb] - before[napb] for napb in before} == {
+        30: 8, 50: 8}
+    cpu = decode_batch(streams, device="cpu")
+    assert tuple(gpu[3].shape) == tuple(cpu[3].shape) == (0, 1)
+    for g, c in zip(gpu[:3], cpu[:3]):
+        assert g.shape == c.shape and g.dtype == c.dtype == torch.int16
+        assert int((g.int() - c.int()).abs().max()) <= 2

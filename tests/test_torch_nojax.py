@@ -1,6 +1,7 @@
 """The PyTorch port runs without jax: a fresh interpreter in which
-importing ``jax`` or ``heaac_tpu`` fails imports heaac_tpu_torch and
-decodes a benchdata stream on the CPU."""
+importing ``jax`` or ``heaac_tpu`` fails imports heaac_tpu_torch,
+decodes a benchdata stream on the CPU, and runs decode_batch on a
+34-band HE-AAC v2 and an AAC-LC stream (4 frames each)."""
 import os
 import subprocess
 import sys
@@ -20,6 +21,14 @@ pcm = QwirePipelinedDecoder([data], group_streams=1, max_frames=4,
 pcm = pcm[0].numpy()
 gold = np.load(REPO + "/tests/data/heaac_v2_golden_jax.npz")["pcm"]
 diff = np.abs(pcm[:, 0].astype(np.int32) - gold[:4, 0]).max()
+from heaac_tpu_torch import decode_batch
+from heaac_tpu_torch.host import split_adts_stream
+heads = [b"".join(split_adts_stream(open(REPO + f, "rb").read())[:4])
+         for f in ("/tests/data/heaac_v2_34band_0.aac",
+                   "/benchdata/lc_core_24k_0.aac")]
+outs = decode_batch(heads, device="cpu")
+print("BATCH", [tuple(o.shape) for o in outs],
+      [int(o.abs().max()) > 0 for o in outs])
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -35,3 +44,5 @@ def test_port_decodes_without_jax():
     _, shape_end = line.split(")", 1)
     peak, diff, loaded = shape_end.split(maxsplit=2)
     assert int(peak) > 1000 and int(diff) <= 2 and loaded == "[]", line
+    batch = [x for x in r.stdout.splitlines() if x.startswith("BATCH")][0]
+    assert batch == "BATCH [(8192, 2), (4096, 1)] [True, True]", batch

@@ -1,6 +1,8 @@
 """PyTorch port of parametric stereo (20-band) against
 heaac_tpu.ops.ps_jax, and the plain version of kernel K1 against the JAX
 scan pair (napb 30 and 50) and the Pallas kernel in interpret mode.
+``check_hybrid`` and ``check_decorrelate_and_mix`` take the band mode;
+tests/test_torch_ps34.py runs them at is34=1.
 
 Tolerances: K1 1e-6 absolute (as tests/test_ps_pallas.py); the float
 stages 1e-5 of each output's peak (einsum / sum order)."""
@@ -12,20 +14,23 @@ import jax.numpy as jnp
 from heaac_tpu.ops import ps_jax, ps_pallas
 from heaac_tpu_torch.ops import ps, ps_decorrelate as K
 from test_torch_common import (  # noqa: F401 (autouse fixture)
-    assert_peak_close, n, port_trace, release_jax_memory, t)
+    assert_peak_close, jit_ref, n, port_trace, release_jax_memory, t)
 
 TOL = 1e-5
 NAMES = ("power", "in_re", "in_im", "trans", "ap", "ag", "qf")
 
 
+def _jax_scans(power, in_re, in_im, trans, ap, is34):
+    return ps_jax._decorrelate_scans(power, in_re, in_im,
+                                     dict(trans=trans), ap,
+                                     ps_jax._consts(is34))
+
+
 @pytest.mark.parametrize("napb", [30, 50])
 def test_k1_plain_matches_jax_scans(napb):
     inp = K.random_inputs(8, napb, seed=napb)
-    c = ps_jax._consts(1 if napb == 50 else 0)
-    jtg, jout, jts, jap = ps_jax._decorrelate_scans(
-        jnp.asarray(inp["power"]), jnp.asarray(inp["in_re"]),
-        jnp.asarray(inp["in_im"]), dict(trans=jnp.asarray(inp["trans"])),
-        jnp.asarray(inp["ap"]), c)
+    jtg, jout, jts, jap = jit_ref(_jax_scans, is34=int(napb == 50))(
+        *(jnp.asarray(inp[k]) for k in NAMES[:5]))
     tg, out, ntr, nap = K.decorrelate_seq(*(t(inp[k]) for k in NAMES))
     for a, b in ((tg, jtg), (out, jout), (ntr, jnp.stack(jts, -1)),
                  (nap, jap)):
@@ -77,29 +82,32 @@ def test_k1_launch_geometry(B, napb):
 
 
 def test_k1_cpu_wrapper_counts_no_launch():
-    before = K.launches
-    K.decorrelate_seq(*(t(v) for v in K.random_inputs(2, 30).values()))
+    before = dict(K.launches)
+    for napb in (30, 50):
+        K.decorrelate_seq(*(t(v) for v in K.random_inputs(2, napb).values()))
     assert K.launches == before
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_hybrid_analysis_synthesis_match_jax(seed):
+def check_hybrid(seed: int, is34: int):
     rng = np.random.default_rng(seed)
     L = (rng.standard_normal((4, 2, 38, 64)) * 100).astype(np.float32)
     in_buf = (rng.standard_normal((4, 5, 6, 2)) * 100).astype(np.float32)
-    jl, jb = ps_jax.hybrid_analysis(jnp.asarray(L), jnp.asarray(in_buf), 0)
-    lb, b = ps.hybrid_analysis(t(L), t(in_buf))
+    jl, jb = jit_ref(ps_jax.hybrid_analysis, is34=is34)(jnp.asarray(L),
+                                                          jnp.asarray(in_buf))
+    lb, b = ps.hybrid_analysis(t(L), t(in_buf), is34)
     assert_peak_close(lb, jl, TOL, "lbuf")
     assert_peak_close(b, jb, 0.0, "in_buf")
     buf = (rng.standard_normal((4, 91, 32, 2)) * 100).astype(np.float32)
-    assert_peak_close(ps.hybrid_synthesis(t(buf)),
-                      ps_jax.hybrid_synthesis(jnp.asarray(buf), 0), TOL,
-                      "hybrid_synthesis")
+    assert_peak_close(ps.hybrid_synthesis(t(buf), is34),
+                      jit_ref(ps_jax.hybrid_synthesis, is34=is34)(
+                          jnp.asarray(buf)), TOL, "hybrid_synthesis")
 
 
-@pytest.mark.parametrize("frame", [0, 2])
-def test_decorrelate_and_mix_matches_jax(frame):
-    plan = port_trace(4, 3)[frame]["ps_plan"]
+def check_decorrelate_and_mix(frame: int, kind: str, is34: int):
+    """One frame's real PS plan (port expansion of 4 streams of ``kind``)
+    with seeded signals and state -> (max |diff| over the outputs, the
+    outputs' peak), after checking each within TOL of its peak."""
+    plan = port_trace(4, 3, kind)[frame]["ps_plan"]
     rng = np.random.default_rng(frame)
     B = 4
     lbuf = (rng.standard_normal((B, 91, 32, 2)) * 100).astype(np.float32)
@@ -108,13 +116,24 @@ def test_decorrelate_and_mix_matches_jax(frame):
         ap=(rng.standard_normal((B, 50, 3, 5, 2)) * 10).astype(np.float32),
         trans=np.abs(rng.standard_normal((B, 34, 3)) * 1e4).astype(
             np.float32))
-    jl, jr, js = ps_jax.decorrelate_and_mix(
+    jl, jr, js = jit_ref(ps_jax.decorrelate_and_mix, is34=is34)(
         jnp.asarray(lbuf), {k: jnp.asarray(v) for k, v in state.items()},
-        {k: jnp.asarray(v) for k, v in plan.items()}, 0)
+        {k: jnp.asarray(v) for k, v in plan.items()})
     pl, pr, pstate = ps.decorrelate_and_mix(
         t(lbuf), {k: t(v) for k, v in state.items()},
-        {k: t(v) for k, v in plan.items()})
-    assert_peak_close(pl, jl, TOL, "lmix")
-    assert_peak_close(pr, jr, TOL, "rmix")
-    for k in ("delay", "ap", "trans"):
-        assert_peak_close(pstate[k], js[k], TOL, k)
+        {k: t(v) for k, v in plan.items()}, is34)
+    pairs = [(pl, jl, "lmix"), (pr, jr, "rmix")] + [
+        (pstate[k], js[k], k) for k in ("delay", "ap", "trans")]
+    for a, b, name in pairs:
+        assert_peak_close(a, b, TOL, name)
+    return max(float(np.abs(n(a) - n(b)).max()) for a, b, _ in pairs)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hybrid_analysis_synthesis_match_jax(seed):
+    check_hybrid(seed, 0)
+
+
+@pytest.mark.parametrize("frame", [0, 2])
+def test_decorrelate_and_mix_matches_jax(frame):
+    check_decorrelate_and_mix(frame, "he20", 0)

@@ -3,19 +3,18 @@ the byte-token coefficient decode (bitwise) on token lanes made by the
 JAX package's host emitter and on the benchdata heap, and the per-frame
 side-info expansion over real frames — every integer output and the
 whole carry exactly, the float plan tensors within 1e-6 of each element
-(XLA's CPU division / sqrt may differ from IEEE in the last bit)."""
-import functools
-
+(XLA's CPU division / sqrt may differ from IEEE in the last bit).
+The expansion runs on 20-band streams and on the 34-band streams of
+tools/make_torch_streams.py (is34=1: the band remap tables)."""
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from heaac_tpu.codec import qwire as jq
 from heaac_tpu_torch.codec import qwire
 from test_torch_common import (  # noqa: F401 (autouse fixture)
-    assert_exact, n, port_parse, release_jax_memory, t)
+    assert_exact, n, port_parse, port_trace, release_jax_memory, t)
 
 
 def _token_lanes(seed: int, B: int = 8):
@@ -74,27 +73,36 @@ def test_decode_coeffs_benchdata_heap_bitwise():
     assert_exact(got.view(np.int32), ref.view(np.int32), "coeffs")
 
 
-@functools.cache
-def _jax_expand():
-    return jax.jit(lambda h, r, c: jq.expand_frame_jax(h, r, c, 0, 0))
-
-
-def test_expand_frame_matches_jax_over_frames():
-    T = 6
-    p = port_parse(4, T)
+def check_expand_frame(kind: str, T: int = 6):
+    p = port_parse(4, T, kind)
     heap = p["heap"].astype(np.int32)
     jheap = jnp.asarray(heap)
     pheap = t(heap)
     jc = jq.init_qcarry(4)
     pc = qwire.init_qcarry(4, "cpu")
-    fn = _jax_expand()
     for f in range(T):
         rec = p["recs"][f]
-        jout = fn(jheap, jnp.asarray(rec), jc)
-        pout = qwire.expand_frame(pheap, t(rec), pc)
+        # eager: its op-by-op compiles take less time than one jit of the
+        # whole function, and the 34-band case reuses most of them
+        jout = jq.expand_frame_jax(jheap, jnp.asarray(rec), jc, p["is34"], 0)
+        pout = qwire.expand_frame(pheap, t(rec), pc, p["is34"])
         for name, a, b in zip(("core_meta", "plan", "pc", "carry"), pout,
                               jout):
             assert_exact(a, b, f"frame {f} {name}",
                          float_rtol=1e-6 if name == "plan" else 0.0)
         jc, pc = jout[3], pout[3]
     assert n(pc["ps"]["ps_ok"]).all()
+    return p
+
+
+def test_expand_frame_matches_jax_over_frames():
+    check_expand_frame("he20")
+
+
+def test_expand_frame_34_matches_jax_over_frames():
+    p = check_expand_frame("he34")
+    assert p["is34"] == 1
+    # the streams really carry 34-band parameters past band 20
+    pcb = np.stack([fr["pc"]["pc_b"] for fr in port_trace(4, 6, "he34")])
+    iid = pcb[:, :, :170].reshape(6, 4, 5, 34)
+    assert np.abs(iid[..., 20:]).max() > 0

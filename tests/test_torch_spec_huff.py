@@ -10,7 +10,7 @@ import jax.numpy as jnp
 from heaac_tpu.ops import spec_huff as jsp
 from heaac_tpu_torch.ops import spec_huff
 from test_torch_common import (  # noqa: F401 (autouse fixture)
-    assert_exact, n, port_parse, release_jax_memory, t)
+    assert_exact, jit_ref, n, port_parse, release_jax_memory, t)
 
 
 @pytest.mark.parametrize("frame", [0, 1, 2])
@@ -23,9 +23,9 @@ def test_decode_spec_bitwise(frame):
     assert short.any() == (frame > 0)
     w3 = rec[:, 3] * mode1
     heap = p["heap"].astype(np.int32)
-    ref = jsp.decode_spec_jax(jnp.asarray(heap), jnp.asarray(rec[:, 0]),
-                              jnp.asarray(w3), p["rate_idx"], p["NB"],
-                              with_ms=False, NS=p["NS"], SEC=p["SEC"])
+    ref = jit_ref(jsp.decode_spec_jax, sampling_index=p["rate_idx"],
+                  NBITS=p["NB"], with_ms=False, NS=p["NS"], SEC=p["SEC"])(
+        jnp.asarray(heap), jnp.asarray(rec[:, 0]), jnp.asarray(w3))
     got = spec_huff.decode_spec(t(heap), t(rec[:, 0]), t(w3), p["rate_idx"],
                                 p["NB"], NS=p["NS"], SEC=p["SEC"])
     assert np.abs(n(ref)).max() > 0
