@@ -25,16 +25,28 @@ Phases (any failure exits non-zero):
      factor;
   5. mixed batch: heaac_tpu_torch.decode_batch with its default device
      over 512 34-band HE-AAC v2 streams (tiled from
-     tests/data/heaac_v2_34band_{0..7}.aac), 512 AAC-LC streams (tiled
+     tests/data/heaac_v2_34band_{0..7}.aac), 512 stereo HE-AAC v1
+     streams (M/S and coupled SBR, tiled from
+     tests/data/heaac_v1_stereo_{0..7}.aac), 512 AAC-LC streams (tiled
      from benchdata/lc_core_24k_{0..7}.aac), the 8 bundled 20-band
-     streams and one buffer with no sync word, shuffled, each its own
+     streams, 8 HE-AAC streams with a coupling channel applied after the
+     IMDCT or before TNS (tests/data/heaac_cce_{after,before}_{0,1}.aac,
+     twice) and one buffer with no sync word, shuffled, each its own
      byte buffer; a warm-up run, then a timed one.  Prints each bucket's
      streams, frames, wall seconds and realtime factor, and K1's launches
-     at napb 30 and 50; checks that the 34-band bucket launched K1 at
-     napb 50 once per frame of each of its groups, every output's shape
-     and non-silence, and streams 0-1 of each kind within 2 LSB of the
-     committed JAX golden (tests/data/decode_batch_golden_jax.npz) and
-     of the port's CPU decode_batch over their first 16 frames.
+     at napb 30 and 50; checks that K1 ran once per frame of each stream
+     group at napb 50 in the 34-band bucket and at napb 30 in the
+     20-band, stereo and coupling-channel buckets (exact counts), every
+     output's shape and non-silence, and streams 0-1 of each kind (the
+     first "before" coupling stream) within 2 LSB of the committed JAX
+     golden (tests/data/decode_batch_golden_jax.npz) and of the port's
+     CPU decode_batch over their first 16 frames;
+  6. stereo main path: QwirePipelinedDecoder with its default device over
+     256 stereo HE-AAC v1 streams (512 lanes, one group) tiled from
+     tests/data/heaac_v1_stereo_{0..7}.aac; checks device M/S (MS = 1)
+     and coupled SBR rows (rows_pair = 1), one K1 launch per frame,
+     non-silent lanes, lanes 0-3 within 2 LSB of the port's CPU run and
+     of the JAX golden over 16 frames, and prints the realtime factor.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -60,6 +72,20 @@ NAMES = ("power", "in_re", "in_im", "trans", "ap", "ag", "qf")
 REPS = 50
 MIXED_LANES = 512              # streams per kind in phase 5
 GROUP_LANES = 256              # decode_batch's HE stream groups
+CCE_COPIES = 2                 # copies of each coupling stream in phase 5
+STREAM_FILES = {               # kind -> (file pattern, number of files)
+    "he20": ("benchdata/heaac_bench_stream_{}.aac", 8),
+    "he34": ("tests/data/heaac_v2_34band_{}.aac", 8),
+    "he_v1s": ("tests/data/heaac_v1_stereo_{}.aac", 8),
+    "lc": ("benchdata/lc_core_24k_{}.aac", 8),
+    "cce_after": ("tests/data/heaac_cce_after_{}.aac", 2),
+    "cce_before": ("tests/data/heaac_cce_before_{}.aac", 2),
+}
+# the phase 5 streams held to the JAX golden and the CPU port: streams
+# 0-1 of each kind, the first of the dependent-coupling kind
+GOLDEN_CHECKED = [(kind, i) for kind in ("he20", "he34", "lc", "he_v1s",
+                                         "cce_after") for i in (0, 1)] + [
+    ("cce_before", 0)]
 GOLDEN_FRAMES = 16
 FLUSH_BYTES = 128 << 20        # > 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
@@ -258,22 +284,27 @@ def golden_tool():
     return mod
 
 
-def mixed_batch(K, card: str) -> dict:
+def read_streams() -> dict:
+    """kind -> the bytes of each of its committed files."""
+    return {kind: [open(os.path.join(REPO, pat.format(i)), "rb").read()
+                   for i in range(nfiles)]
+            for kind, (pat, nfiles) in STREAM_FILES.items()}
+
+
+def mixed_batch(K, card: str, files: dict) -> dict:
     """Phase 5: decode_batch over the mixed batch on the card (default
     device); returns the K1 launch counts of the timed run."""
     from heaac_tpu_torch import decode_batch
     from heaac_tpu_torch.host import count_adts_frames, split_adts_stream
     tool = golden_tool()
     named = dict(tool.batch_streams())
-    files = {kind: [open(os.path.join(REPO, pat.format(i)), "rb").read()
-                    for i in range(8)]
-             for kind, pat in (
-                 ("he34", "tests/data/heaac_v2_34band_{}.aac"),
-                 ("lc", "benchdata/lc_core_24k_{}.aac"),
-                 ("he20", "benchdata/heaac_bench_stream_{}.aac"))}
+    cce = [(kind, j) for kind in ("cce_after", "cce_before")
+           for j in range(2)]
     items = ([("he34", i % 8) for i in range(MIXED_LANES)]
+             + [("he_v1s", i % 8) for i in range(MIXED_LANES)]
              + [("lc", i % 8) for i in range(MIXED_LANES)]
-             + [("he20", i) for i in range(8)] + [("garbage", 0)])
+             + [("he20", i) for i in range(8)] + cce * CCE_COPIES
+             + [("garbage", 0)])
     order = np.random.default_rng(5).permutation(len(items))
     items = [items[k] for k in order]
     # every lane its own byte buffer
@@ -310,16 +341,24 @@ def mixed_batch(K, card: str) -> dict:
           f"(warm-up {warm_s:.3f} s), realtime {total_audio / wall:.1f}x; "
           f"K1 launches napb 30: {launches[30]}, napb 50: {launches[50]}",
           flush=True)
-    groups34 = -(-MIXED_LANES // GROUP_LANES)
-    want50 = groups34 * max(frames["he34"])
-    if len(set(frames["he34"])) != 1 or launches[50] != want50:
-        raise SystemExit(f"34-band bucket: K1 napb 50 launched "
-                         f"{launches[50]} times, expected {groups34} groups "
-                         f"x {max(frames['he34'])} frames = {want50}")
-    if launches[30] != max(frames["he20"]):
-        raise SystemExit(f"20-band bucket: K1 napb 30 launched "
-                         f"{launches[30]} times for {max(frames['he20'])} "
-                         "frames")
+    # one K1 launch per frame of each stream group: (kinds, streams)
+    # per napb; the coupling streams of both points share one bucket
+    n_of = {"he34": MIXED_LANES, "he20": 8, "he_v1s": MIXED_LANES,
+            "cce": len(cce) * CCE_COPIES}
+    frames["cce"] = frames["cce_after"] + frames["cce_before"]
+    want = {50: ["he34"], 30: ["he20", "he_v1s", "cce"]}
+    for napb, kinds in want.items():
+        if any(len(set(frames[k])) != 1 for k in kinds):
+            raise SystemExit(f"streams of unequal lengths among {kinds}")
+        terms = [(-(-n_of[k] // GROUP_LANES), frames[k][0]) for k in kinds]
+        expect = sum(g * f for g, f in terms)
+        print(f"K1 napb {napb}: {launches[napb]} launches, expected "
+              + " + ".join(f"{k} {g} groups x {f} frames"
+                           for k, (g, f) in zip(kinds, terms))
+              + f" = {expect}", flush=True)
+        if launches[napb] != expect:
+            raise SystemExit(f"K1 napb {napb} launched {launches[napb]} "
+                             f"times, expected {expect}")
 
     for (kind, i), pcm in zip(items, outs):
         if kind == "garbage":
@@ -336,22 +375,78 @@ def mixed_batch(K, card: str) -> dict:
     with np.load(tool.BATCH_GOLDEN) as z:
         gold = {str(name): z[f"pcm_{k}"] for k, name in enumerate(z["names"])}
     heads = [b"".join(split_adts_stream(files[kind][i])[:GOLDEN_FRAMES])
-             for kind in ("he20", "he34", "lc") for i in (0, 1)]
+             for kind, i in GOLDEN_CHECKED]
     cpu = decode_batch(heads, device="cpu")
     worst = {}
-    for k, (kind, i) in enumerate((kind, i) for kind in ("he20", "he34", "lc")
-                                  for i in (0, 1)):
+    for k, (kind, i) in enumerate(GOLDEN_CHECKED):
+        name = f"{kind}_{i}"
         rows = cpu[k].shape[0]
         got = outs[where[kind, i]][:rows].numpy().astype(np.int32)
-        d_gold = int(np.abs(got - gold[f"{kind}_{i}"][:rows]).max())
+        d_gold = int(np.abs(got - gold[name][:rows]).max())
         d_cpu = int(np.abs(got - cpu[k].numpy()).max())
-        worst[f"{kind}_{i}"] = (d_gold, d_cpu)
+        worst[name] = (d_gold, d_cpu)
     print(f"streams 0-1 of each kind, first {GOLDEN_FRAMES} frames, max LSB "
           f"(vs JAX golden, vs port CPU): {worst}", flush=True)
     if max(max(v) for v in worst.values()) > TOL_LSB:
         raise SystemExit("mixed batch: card output differs from the "
                          "references")
     return launches
+
+
+def stereo_main_path(K, card: str, files: dict) -> int:
+    """Phase 6: QwirePipelinedDecoder on the card (default device) over
+    GROUP_LANES stereo HE-AAC v1 streams, one group of 2 x GROUP_LANES
+    lanes; returns K1's napb-30 launches of the timed run."""
+    from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+    stereo = files["he_v1s"]
+    streams = [bytes(stereo[i % 8]) for i in range(GROUP_LANES)]
+    dec = QwirePipelinedDecoder(streams)
+    if dec.device.type != "cuda":
+        raise SystemExit(f"default device is {dec.device}, not the card")
+    t0 = time.perf_counter()
+    dec.decode()                                   # warm-up
+    warm_s = time.perf_counter() - t0
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs = dec.decode()
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    pcm = outs[0].cpu().numpy()                    # [T, 2 x 256, 2, 2048]
+    T, L = pcm.shape[:2]
+    audio_s = dec.audio_seconds()
+    print(f"stereo main path: {GROUP_LANES} streams, {L} lanes x {T} frames,"
+          f" MS {dec.MS}, rows_pair {dec.RP}, audio {audio_s:.3f} s, wall "
+          f"{wall:.3f} s (warm-up {warm_s:.3f} s), realtime "
+          f"{audio_s / wall:.1f}x on {card}; K1 launches {launches}",
+          flush=True)
+    if (dec.MS, dec.RP, dec.nl, L) != (1, 1, 2, 2 * GROUP_LANES):
+        raise SystemExit("stereo main path: not the M/S + coupled-rows "
+                         "decode of one 2-lane-per-stream group")
+    if launches != {30: T, 50: 0}:
+        raise SystemExit(f"K1 launched {launches} times (napb: count) for "
+                         f"{T} frames")
+    peak = np.abs(pcm.astype(np.int32)).max(axis=(0, 2, 3))
+    if not (peak > 0).all():
+        raise SystemExit(f"silent lanes: {np.flatnonzero(peak == 0)}")
+    cpu = QwirePipelinedDecoder(stereo[:2], group_streams=2,
+                                max_frames=GOLDEN_FRAMES, device="cpu")
+    ref = cpu.decode()[0].numpy()                  # [16, 4, 2, 2048]
+    got = pcm[:GOLDEN_FRAMES, :4].astype(np.int32)
+    d_cpu = int(np.abs(got - ref).max())
+    with np.load(golden_tool().BATCH_GOLDEN) as z:
+        gold = {str(name): z[f"pcm_{k}"] for k, name in enumerate(z["names"])}
+    d_gold = 0
+    for i in (0, 1):                   # golden [n, 2]: lanes 2i, 2i + 1
+        want = gold[f"he_v1s_{i}"][:GOLDEN_FRAMES * 2048]
+        for ch in (0, 1):
+            lane = got[:, 2 * i + ch, 0].reshape(-1)
+            d_gold = max(d_gold, int(np.abs(lane - want[:, ch]).max()))
+    print(f"lanes 0-3 x {GOLDEN_FRAMES} frames vs port CPU: max {d_cpu} LSB;"
+          f" vs JAX golden: max {d_gold} LSB", flush=True)
+    if d_cpu > TOL_LSB or d_gold > TOL_LSB:
+        raise SystemExit("stereo main path: card output differs from the "
+                         "references")
+    return launches[30]
 
 
 def main() -> None:
@@ -429,8 +524,13 @@ def main() -> None:
     phase_done("4 main path")
 
     # ---- 5. mixed batch through decode_batch -------------------------------
-    mixed = mixed_batch(K, card)
+    files = read_streams()
+    mixed = mixed_batch(K, card, files)
     phase_done("5 mixed batch")
+
+    # ---- 6. stereo main path ------------------------------------------------
+    stereo30 = stereo_main_path(K, card, files)
+    phase_done("6 stereo main path")
 
     row = dict(krows[30])
     row.pop("max_abs_err")
@@ -443,7 +543,14 @@ def main() -> None:
         "launches_napb50": mixed[50],
         "launches_napb50_path": "phase 5: decode_batch, 34-band bucket "
                                 f"({MIXED_LANES} streams)",
-        "launches_phase5_napb30": mixed[30]}]}))
+        "launches_phase5_napb30": mixed[30],
+        "launches_phase5_napb30_path": "phase 5: decode_batch, 20-band, "
+                                       "stereo HE-AAC v1 and coupling-"
+                                       "channel buckets",
+        "launches_phase6_napb30": stereo30,
+        "launches_phase6_napb30_path": "phase 6: QwirePipelinedDecoder, "
+                                       f"{GROUP_LANES} stereo HE-AAC v1 "
+                                       "streams"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

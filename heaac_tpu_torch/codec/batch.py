@@ -10,7 +10,10 @@ writes each group of streams into a byte heap + per-frame-lane records
 CUDA, two sets); each group is uploaded with non-blocking copies and
 decoded by the whole-stream scan (``heaac_graph.qwire_scan_decode``).
 The parse of group g+1 runs on a worker thread (the native call releases
-the GIL) while the main thread issues group g's decode.
+the GIL) while the main thread issues group g's decode.  A stream's lanes
+are its output channels (a CPE two, PS or a mono core one), then one
+lane per coupling channel element; AFTER_IMDCT coupling travels as
+per-group edge arrays beside the heap and records.
 
 LcStreamBatchDecoder (AAC-LC / Main): the native whole-stream parser
 gives every frame's dequantized spectra; one upload, then the IMDCT /
@@ -18,11 +21,12 @@ overlap-add scan (``heaac_graph.lc_scan_decode``).
 
 Differences from the JAX package:
   - stream profiles (lanes, SBR, PS band mode) come from a native probe
-    of the first two frames, not the Python planner;
+    of the first two frames, not the Python planner; the output lanes of
+    a channel configuration 0 stream come from its first frame's program
+    config element (``host.pce_lanes``);
   - what the JAX package hands to the Python planner, the single-stream
     ``Decoder`` or the band-mode-flip scan raises NotImplementedError
-    naming the stream, as do device M/S, coupled-CPE SBR rows, CCE lanes
-    and AFTER_IMDCT coupling (none of them is ported);
+    naming the stream (none of them is ported);
   - the heap travels as a uint8 tensor (the f32 view existed only for
     the TPU transport).
 """
@@ -40,8 +44,8 @@ from .. import native
 from .. import tables as TB
 from ..device import resolve
 from ..host import (R_W1, REC_W, count_adts_frames, parse_adts_header,
-                    rows_pair_static, silence_lane, spec_static_args,
-                    split_adts_stream)
+                    pce_lanes, rows_pair_static, silence_lane,
+                    spec_static_args, split_adts_stream)
 from .heaac_graph import init_qwire_carry, lc_scan_decode, qwire_scan_decode
 
 log = logging.getLogger("heaac_tpu_torch")
@@ -54,13 +58,34 @@ def _layout_lanes(chan_config: int) -> int:
                for et, _ in TB.CHANNEL_LAYOUT_MAP.get(chan_config, ()))
 
 
+def _flatten_couple(couples: list, nl: int, T: int):
+    """Per-slot (edges [K, 3], gains [nf, K]) or None -> the group's
+    AFTER_IMDCT edge arrays over its lanes (slot b's lanes start at
+    b * nl): (etgt [K], etch [K], esrc [K] int64, gains [T, K] f32, 0
+    past a stream's last frame), or None when no slot couples."""
+    rows, cols = [], []
+    for b, couple in enumerate(couples):
+        if couple is None:
+            continue
+        struct, gains = couple
+        rows.append(struct + np.array([b * nl, 0, b * nl]))
+        col = np.zeros((T, struct.shape[0]), np.float32)
+        col[:len(gains)] = gains[:T]
+        cols.append(col)
+    if not rows:
+        return None
+    e = np.concatenate(rows).astype(np.int64)
+    return e[:, 0], e[:, 1], e[:, 2], np.concatenate(cols, 1)
+
+
 class QwirePipelinedDecoder:
     """End-to-end pipelined batched decode over the quantized wire
     format; ``decode()`` returns one pcm tensor [T, L, 2, 2048] int16 per
     stream group, on ``device``: the card unless the caller passes
     ``device="cpu"`` (without a card the default raises RuntimeError).
     Stream i sits in group ``group_of[i]`` at lanes ``slot_of[i] * nl``
-    onwards; its first ``out_nl`` lanes are output channels."""
+    onwards; its first ``out_nl`` lanes are output channels, the rest
+    its coupling channels' lanes."""
 
     def __init__(self, streams, group_streams: int = 256,
                  max_frames: int | None = None, token_cap: int = 640,
@@ -75,12 +100,18 @@ class QwirePipelinedDecoder:
             raise NotImplementedError(
                 "stream 0 needs the Python planner, which is not ported")
         self.nl = probe["lanes"]
-        self.out_nl = _layout_lanes(self.hdr.chan_config)
-        if self.nl != self.out_nl:
+        if self.hdr.chan_config:
+            self.out_nl = _layout_lanes(self.hdr.chan_config)
+            n_cce = self.nl - self.out_nl
+        else:
+            self.out_nl, n_cce = pce_lanes(
+                self.streams[0][:self.hdr.frame_length])
+        if n_cce < 0 or self.out_nl + n_cce != self.nl:
             raise NotImplementedError(
-                f"stream 0: {self.nl} lanes for channel config "
-                f"{self.hdr.chan_config} (CCE lanes or a PCE layout), "
-                "which is not ported")
+                f"stream 0: {self.nl} lanes where its layout has "
+                f"{self.out_nl} output and {n_cce} coupling channel lanes "
+                "(a layout change needs the Python planner, which is not "
+                "ported)")
         counts = [count_adts_frames(s) for s in self.streams]
         if max_frames is not None:
             counts = [min(c, max_frames) for c in counts]
@@ -154,7 +185,9 @@ class QwirePipelinedDecoder:
     def _parse_group(self, group: list, bufset: int, T: int,
                      n_real: int | None = None):
         """Parse one group into staging set ``bufset`` -> (heap, cur, recs)
-        numpy views, or None when the heap overflowed (grow + retry)."""
+        numpy views and the group's AFTER_IMDCT edges (``_flatten_couple``;
+        arrays of their own, so the next parse cannot overwrite them), or
+        None when the heap overflowed (grow + retry)."""
         self._wait_uploads((bufset,))
         _, _, heap, recs = self._buffers(bufset)
         recs[:T] = self._sil_recs[:T]
@@ -172,8 +205,15 @@ class QwirePipelinedDecoder:
         cgains_p = cgains.ctypes.data_as(C.POINTER(C.c_float))
         cur_c = C.c_int64(cur)
         h = self.hdr
+        couples = [None] * len(group)
+        edges_dirty = False
         for gi, data in enumerate(group):
             lane0 = gi * self.nl
+            if edges_dirty:
+                # the parser writes gains only where a CCE is present:
+                # clear the previous stream's
+                cgains[:] = 0
+                edges_dirty = False
             nf = fn(data, len(data), h.sampling_index, h.sample_rate,
                     h.chan_config, heap_p, heap.nbytes, C.byref(cur_c),
                     recs_p, T, recs.shape[1], lane0, info_p, cedges_p,
@@ -186,10 +226,12 @@ class QwirePipelinedDecoder:
                 raise NotImplementedError(
                     f"stream {gi} of the group needs the Python planner, "
                     "which is not ported")
-            if int(info[4]):
-                raise NotImplementedError(
-                    f"stream {gi} of the group uses AFTER_IMDCT coupling, "
-                    "which is not ported")
+            ne = int(info[4])
+            if ne:
+                edges_dirty = True
+                if n_real is None or gi < n_real:
+                    couples[gi] = (cedges[:3 * ne].reshape(ne, 3).copy(),
+                                   cgains[:nf, :ne].copy())
             if int(info[2]) != self.is34:
                 raise NotImplementedError(
                     f"stream {gi} of the group: PS band mode is34="
@@ -211,7 +253,7 @@ class QwirePipelinedDecoder:
         self.NS = max(self.NS, sa["NS"])
         self.SEC = max(self.SEC, sa["SEC"])
         self.RP = max(self.RP, rows_pair_static(heap[:cur], recs[:T]))
-        return heap, cur, recs
+        return heap, cur, recs, _flatten_couple(couples, self.nl, T)
 
     def _static_args(self) -> dict:
         return dict(S=self.S, rate_idx=self.rate_idx, NB=self.NB, MS=self.MS,
@@ -219,7 +261,7 @@ class QwirePipelinedDecoder:
 
     def _parse_with_retry(self, gidx: int):
         """Parse group ``gidx`` into staging set gidx % 2 -> (cur, Tg,
-        static decode sizes as of this group)."""
+        static decode sizes as of this group, its coupling edges)."""
         idxs = self.order[gidx * self.G:(gidx + 1) * self.G]
         group = [self.streams[i] for i in idxs]
         n_real = len(group)
@@ -229,13 +271,14 @@ class QwirePipelinedDecoder:
         for _ in range(6):
             r = self._parse_group(group, gidx % 2, Tg, n_real)
             if r is not None:
-                return r[1], Tg, self._static_args()
+                return r[1], Tg, self._static_args(), r[3]
             self._grow()
         raise MemoryError("qwire heap kept overflowing")
 
-    def _upload(self, bufset: int, cur: int, Tg: int):
-        """Staging set -> device tensors (non-blocking from pinned memory
-        on CUDA, with an event the next parse of this set waits on)."""
+    def _upload(self, bufset: int, cur: int, Tg: int, couple=None):
+        """Staging set (and the group's coupling edges) -> device tensors
+        (non-blocking from pinned memory on CUDA, with an event the next
+        parse of this set waits on)."""
         heap_t, recs_t, _, _ = self._bufsets[bufset]
         n_up = min(cur + (1 << 18), self._cap)
         cuda = self.device.type == "cuda"
@@ -245,15 +288,15 @@ class QwirePipelinedDecoder:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
             self._uploaded[bufset] = ev
-        return heap_d, recs_d
+        if couple is not None:
+            couple = tuple(torch.from_numpy(a).to(self.device)
+                           for a in couple)
+        return heap_d, recs_d, couple
 
-    def _scan(self, heap_d, recs_d, sa: dict):
-        if sa["MS"] or sa["rows_pair"]:
-            raise NotImplementedError(
-                "device M/S and coupled-CPE SBR rows are not ported")
+    def _scan(self, heap_d, recs_d, sa: dict, couple=None):
         carry = init_qwire_carry(self.L, self.device)
         _, pcm = qwire_scan_decode(heap_d, recs_d, carry, self.is34, self.ds,
-                                   **sa)
+                                   couple=couple, **sa)
         return pcm
 
     def decode(self):
@@ -269,11 +312,12 @@ class QwirePipelinedDecoder:
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = pool.submit(self._parse_with_retry, 0)
             for gidx in range(ngroups):
-                cur, Tg, sa = fut.result()
-                heap_d, recs_d = self._upload(gidx % 2, cur, Tg)
+                cur, Tg, sa, couple = fut.result()
+                heap_d, recs_d, couple_d = self._upload(gidx % 2, cur, Tg,
+                                                        couple)
                 if gidx + 1 < ngroups:
                     fut = pool.submit(self._parse_with_retry, gidx + 1)
-                outs.append(self._scan(heap_d, recs_d, sa))
+                outs.append(self._scan(heap_d, recs_d, sa, couple_d))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         by_orig = [0] * n
@@ -369,8 +413,9 @@ def decode_batch(streams, device="cuda") -> list:
     unless the caller passes ``device="cpu"``; without a card the
     default raises RuntimeError).  Returns CPU int16 tensors [n, ch] in
     input order: stereo for HE-AAC v2 (PS) and mono-core HE streams, one
-    channel per lane otherwise; a buffer with no ADTS sync word gives
-    [0, 1].  A stream the port cannot decode raises NotImplementedError
+    channel per output lane otherwise (stereo HE-AAC v1: two), never the
+    lanes of coupling channel elements; a buffer with no ADTS sync word
+    gives [0, 1].  A stream the port cannot decode raises NotImplementedError
     naming its index (the JAX package's single-stream fallbacks are not
     ported).  Each bucket logs, at INFO, its key, streams, frames, audio
     and wall seconds (also as the record's ``bucket_stats`` dict)."""

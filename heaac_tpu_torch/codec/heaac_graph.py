@@ -3,11 +3,14 @@
 Counterpart: ``heaac_tpu/codec/heaac_graph.py`` — HeaacState/init_state,
 heaac_frame (is34 0 or 1, downsampled=0, with the ps_on gate and the PS
 state freeze), init_qwire_carry, heaac_frame_qwire,
-_qwire_decode_all_coeffs (MS=0) and qwire_scan_decoder; and the AAC-LC
-scan (``heaac_tpu/codec/batch.py`` _make_lc_scan_decoder, couple=False).
+_qwire_decode_all_coeffs (with the device M/S pair butterfly),
+qwire_scan_decoder and qwire_scan_decoder_couple; and the AAC-LC scan
+(``heaac_tpu/codec/batch.py`` _make_lc_scan_decoder, couple=False).
 One frame for B lanes: core IMDCT / overlap-add -> QMF analysis -> SBR
 HF reconstruction -> parametric stereo -> QMF synthesis.  The scans are
-Python loops over T frames that round to int16 inside the loop.
+Python loops over T frames that round to int16 inside the loop, except
+with AFTER_IMDCT coupling, which mixes the float output of all frames
+first.
 """
 from __future__ import annotations
 
@@ -133,30 +136,50 @@ CHUNK_ROWS = 4096    # frame-lanes per decode pass of the scan prologue
 
 def decode_all_coeffs(heap, rec_seq, S: int, rate_idx: int, NB: int,
                       MS: int = 0, NS: int = 52, SEC: int = 31):
-    """Scan prologue (_qwire_decode_all_coeffs, MS=0): token decode — plus
-    the raw-bits spectral decode of mode-1 lanes when NB > 0 — of every
+    """Scan prologue (_qwire_decode_all_coeffs): token decode — plus the
+    raw-bits spectral decode of mode-1 lanes when NB > 0 — of every
     frame-lane at once, CHUNK_ROWS flattened rows at a time to bound the
     [rows, NB] working set.  heap [N] byte values (any int dtype),
     rec_seq [T, L, REC_W] -> (heap int64, rec_seq int64,
-    coeffs [T, L, 1024])."""
-    if MS:
-        raise NotImplementedError("device M/S (MS=1) is not ported")
+    coeffs [T, L, 1024]).
+
+    With MS != 0, spec-mode CPE pairs flagged W3_MS_LEFT/RIGHT get the
+    M/S butterfly (aacdec.c:1390-1411): raw-bits lanes ship PRE-M/S
+    spectra, and a pair's lanes sit at flat rows r (left) and r + T
+    (right) under the lane-major flattening.  The two rows of a pair can
+    fall in different chunks, so the butterfly runs once, on all rows."""
     heap = heap.long()
     rec_seq = rec_seq.long()
     T, L = rec_seq.shape[:2]
     flat = rec_seq.transpose(0, 1).reshape(L * T, rec_seq.shape[2])
-    parts = []
+    mode1 = ((flat[:, R_W2] >> 24) & 15) == 1
+    w3 = flat[:, R_W3] * mode1
+    parts, masks = [], []
     for r0 in range(0, L * T, CHUNK_ROWS):
         f = flat[r0:r0 + CHUNK_ROWS]
         c = qwire.decode_coeffs(heap, f[:, R_TOKOFF], f[:, R_W1] & 0xFFFF, S)
         if NB > 0:
-            mode1 = ((f[:, R_W2] >> 24) & 15) == 1
+            m1 = mode1[r0:r0 + CHUNK_ROWS]
             spec = spec_huff.decode_spec(heap, f[:, R_TOKOFF],
-                                         f[:, R_W3] * mode1, rate_idx, NB,
-                                         NS=NS, SEC=SEC)
-            c = torch.where(mode1[:, None], spec, c)
+                                         w3[r0:r0 + CHUNK_ROWS], rate_idx,
+                                         NB, with_ms=bool(MS), NS=NS, SEC=SEC)
+            if MS:
+                spec, msk = spec
+                masks.append(msk > 0)
+            c = torch.where(m1[:, None], spec, c)
         parts.append(c)
-    coeffs = torch.cat(parts, 0).reshape(L, T, 1024).transpose(0, 1)
+    coeffs = torch.cat(parts, 0)
+    if MS:
+        msk = torch.cat(masks, 0)
+        left = ((w3 >> 28) & 1)[:, None] > 0
+        right = ((w3 >> 29) & 1)[:, None] > 0
+        z = coeffs.new_zeros((T, 1024))
+        dn = torch.cat([coeffs[T:], z], 0)             # row + T
+        up = torch.cat([z, coeffs[:-T]], 0)            # row - T
+        m_r = torch.cat([msk.new_zeros((T, 1024)), msk[:-T]], 0) & right
+        coeffs = torch.where(msk & left, coeffs + dn,
+                             torch.where(m_r, up - coeffs, coeffs))
+    coeffs = coeffs.reshape(L, T, 1024).transpose(0, 1)
     return heap, rec_seq, coeffs
 
 
@@ -166,22 +189,41 @@ def to_int16(pcm):
     return torch.clamp(torch.round(pcm), -32768, 32767).to(torch.int16)
 
 
+def couple_mix(pcm, etgt, etch, esrc, gains):
+    """AFTER_IMDCT coupling at the output rate (qwire_scan_decoder_couple's
+    mix): pcm [T, L, 2, N] f32 gains gains[t, k] * pcm[t, esrc[k], 0] in
+    pcm[t, etgt[k], etch[k]] for each edge k ([K] int edges, gains
+    [T, K]).  Every source is read before the first add, and edges with
+    the same target add up.  Returns pcm, updated in place."""
+    T, L, _, N = pcm.shape
+    add = gains[:, :, None] * pcm[:, esrc, 0]                  # [T, K, N]
+    pcm.view(T, L * 2, N).index_add_(1, etgt * 2 + etch, add)
+    return pcm
+
+
 def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
                       S: int, rate_idx: int = -1, NB: int = 0, MS: int = 0,
-                      NS: int = 52, SEC: int = 31, rows_pair: int = 0):
+                      NS: int = 52, SEC: int = 31, rows_pair: int = 0,
+                      couple=None):
     """qwire_scan_decoder's run: decode every frame's coefficients in one
     parallel pass, then step the frame graph over the T frames.  heap is
     the byte heap, rec_seq [T, L, REC_W] the records -> (carry,
-    pcm int16 [T, L, 2, 2048])."""
+    pcm int16 [T, L, 2, 2048]).  ``couple`` = (etgt, etch, esrc, gains)
+    tensors on the device (qwire_scan_decoder_couple): the float output
+    of every frame is kept, the AFTER_IMDCT coupling mixed in
+    (``couple_mix``), and only then rounded."""
     _require_static(is34, downsampled)
     heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S, rate_idx,
                                               NB, MS, NS, SEC)
     T, L = rec_seq.shape[:2]
-    pcm = torch.empty((T, L, 2, 2048), dtype=torch.int16, device=heap.device)
+    dtype = torch.int16 if couple is None else torch.float32
+    pcm = torch.empty((T, L, 2, 2048), dtype=dtype, device=heap.device)
     for t in range(T):
         out, carry = heaac_frame_qwire(coeffs[t], rec_seq[t], heap, carry,
                                        is34, downsampled, rows_pair)
-        pcm[t] = to_int16(out)
+        pcm[t] = out if couple is not None else to_int16(out)
+    if couple is not None:
+        pcm = to_int16(couple_mix(pcm, *couple))
     return carry, pcm
 
 

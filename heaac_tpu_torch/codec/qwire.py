@@ -2,7 +2,8 @@
 
 Counterpart: ``heaac_tpu/codec/qwire.py`` device half — decode_coeffs_jax
 (byte-token spectrum decode), init_qcarry and expand_frame_jax with
-is34 in (0, 1), rows_pair=0: per-frame side info + carried state -> core meta,
+is34 in (0, 1), rows_pair 0 or 1 (1: the coupled-CPE raw SBR rows of
+stereo HE-AAC v1): per-frame side info + carried state -> core meta,
 the dense SBR plan (sbr_dequant / mapping / chirp by LUT gathers), and
 the PS codes (raw-bits row decode via ops/ps_huff + band remap).  The
 wire layout constants live in ``host.py``.  Every integer output and
@@ -160,10 +161,9 @@ def init_qcarry(B: int, device) -> dict:
 def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
     """rec [B, REC_W] int + heap + carry -> (core_meta, sbr dense plan,
     ps codes {pc_i, pc_b}, new carry) for one frame (expand_frame_jax)."""
-    if is34 not in (0, 1) or rows_pair:
+    if is34 not in (0, 1):
         raise NotImplementedError(
-            "only is34 0 or 1 with rows_pair=0 (mono-core PS in one band "
-            "mode) is ported")
+            "only one PS band mode per frame (is34 0 or 1) is ported")
     dev = heap.device
     Lt = _luts(dev)
     f32 = torch.float32
@@ -295,6 +295,9 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
     after_noise = after_env + ntotal * (1 + coupled)
 
     # ---- wire-v5 raw-rows block (ops/sbr_huff) ------------------------------
+    # the static rows_pair adds the coupled-CPE channel's blocks: both
+    # lanes of a coupled pair ship the same region and each decodes both
+    # channels' chained rows (read_sbr_cpe)
     rows_on = ((flags >> 7) & 1) * start
     byte_act = (start > 0) & (rows_on == 0)
     rr_off = soff[:, 0]
@@ -309,7 +312,7 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
         sbr_huff.decode_sbr_rows(
             region, rr_phase, rr_rbits, ne=ne, nnoise=nnoise, frbits=frbits,
             n0=n0, n1=n1, nq=nq, ampres=ampres, active=rows_live,
-            carry=carry["sbrrows"])
+            carry=carry["sbrrows"], coupled=coupled, pair=bool(rows_pair))
     ec_w = ec_r & 0xFF
     qc_w = qc_r & 0xFF
     rl3 = rows_live[:, None, None]
@@ -321,8 +324,17 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
     ro3 = (rows_on > 0)[:, None, None]
     ecodes = torch.where(ro3, er_last, ecodes)
     qcodes = torch.where(ro3, qr_last, qcodes)
-    pr_last = carry["sbr_pc"]
-    qpr_last = carry["sbr_qpc"]
+    if rows_pair:
+        bcp = (byte_act & (coupled > 0))[:, None, None]
+        pr_last = torch.where(rl3, pc_r & 0xFF,
+                              torch.where(bcp, pcodes, carry["sbr_pc"]))
+        qpr_last = torch.where(rl3, qpc_r & 0xFF,
+                               torch.where(bcp, qpcodes, carry["sbr_qpc"]))
+        pcodes = torch.where(ro3, pr_last, pcodes)
+        qpcodes = torch.where(ro3, qpr_last, qpcodes)
+    else:
+        pr_last = carry["sbr_pc"]
+        qpr_last = carry["sbr_qpc"]
     after_noise = torch.where(rows_on > 0, rr_off + 2 + rr_bytes,
                               after_noise)
     ah_off = after_noise

@@ -2,6 +2,8 @@
 
 Counterparts: ADTS header parse and ``split_adts_stream``
 (heaac_tpu/bitstream/adts.py), ``_count_adts_frames`` (codec/batch.py),
+the lane counts of a program config element (``parse_pce_layout`` of
+bitstream/aac_syntax.py with codec/decoder.py ``_configure_from_pce``),
 and the qwire wire-format
 constants and helpers (codec/qwire.py: token set, record layout, side /
 header / PS block layout, ``silence_lane``, ``spec_static_args``).
@@ -12,6 +14,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from . import tables as TB
 from .tables import SAMPLE_RATES
 
 # ---- token constants (qwire.py) --------------------------------------------
@@ -116,6 +119,60 @@ def count_adts_frames(data: bytes) -> int:
         n += 1
         off += flen
     return n
+
+
+def pce_lanes(frame: bytes) -> tuple:
+    """(output lanes, CCE lanes) of the program config element that opens
+    an ADTS frame's raw data block (channel configuration 0), past any
+    fill or data stream elements before it: a CPE gives two output lanes,
+    an SCE or LFE one, and each coupling channel one lane after them (the
+    native parser's lane order).  Raises NotImplementedError when no PCE
+    comes first."""
+    hdr_len = 7 if frame[1] & 1 else 9          # protection_absent: no CRC
+    bits = int.from_bytes(frame[hdr_len:], "big")
+    nbits = 8 * (len(frame) - hdr_len)
+    pos = 0
+
+    def get(n: int) -> int:
+        nonlocal pos
+        if pos + n > nbits:
+            raise NotImplementedError("frame ends before its PCE")
+        pos += n
+        return (bits >> (nbits - pos)) & ((1 << n) - 1)
+
+    while True:
+        elem = get(3)
+        if elem == TB.TYPE_FIL:
+            count = get(4)
+            if count == 15:
+                count += get(8) - 1
+            pos += 8 * count
+        elif elem == TB.TYPE_DSE:
+            get(4)
+            align = get(1)
+            count = get(8)
+            if count == 255:
+                count += get(8)
+            if align:
+                pos += -pos % 8
+            pos += 8 * count
+        elif elem == TB.TYPE_PCE:
+            break
+        else:
+            raise NotImplementedError(
+                "channel configuration 0 whose first frame does not open "
+                "with a program config element")
+    get(4 + 2 + 4)                   # element tag, object type, rate index
+    n_front, n_side, n_back, n_lfe = get(4), get(4), get(4), get(2)
+    n_assoc, n_cc = get(3), get(4)
+    for skip in (4, 4, 3):           # mono / stereo / matrix mixdown
+        if get(1):
+            get(skip)
+    out = 0
+    for _ in range(n_front + n_side + n_back):
+        out += 1 + get(1)            # is_cpe
+        get(4)
+    return out + n_lfe, n_cc
 
 
 def silence_lane() -> tuple:

@@ -1,8 +1,9 @@
 """SBR envelope/noise Huffman decode on device (wire v5 raw rows).
 
 Counterpart: ``heaac_tpu/ops/sbr_huff.py`` — init_rows_carry,
-_env_block, _noise_block and decode_sbr_rows_jax with pair=False (the
-single-channel element; coupled-CPE rows are not ported yet).  Each row
+_env_block, _noise_block and decode_sbr_rows_jax (``pair`` adds the
+coupled-CPE channel's blocks; without it the single-channel element
+issues no op of theirs).  Each row
 classifies every bit offset of its window against its codebook's flat
 LUT, resolves code starts by binary lifting, then applies the time /
 frequency delta coding.  Bit-identical to the JAX decoder.
@@ -197,13 +198,15 @@ def _noise_block(region, pos, ok, nnoise, nq, df_noise, bal, active,
 
 
 def decode_sbr_rows(region, phase, rbits, ne, nnoise, frbits, n0, n1, nq,
-                    ampres, active, carry):
-    """Single-channel decode of one element's dtdf+env+noise raw region
-    (decode_sbr_rows_jax, pair=False).  Control inputs are [B] int;
-    ``region`` [B, RW] bytes starting at the byte that holds the first
-    dtdf bit (bit ``phase``).  Returns (ecodes [B,E,NB], pcodes,
-    qcodes [B,2,NQ], qpcodes, ok [B], new_carry); pcodes/qpcodes are the
-    absent pan channel's zeros."""
+                    ampres, active, carry, coupled=None, pair: bool = False):
+    """Decode of one element's dtdf+env+noise raw region
+    (decode_sbr_rows_jax).  Control inputs are [B] int; ``region``
+    [B, RW] bytes starting at the byte that holds the first dtdf bit (bit
+    ``phase``); ``coupled`` [B] marks CPE-coupled lanes, whose second
+    (balance) channel's rows follow the first's, and is read only with
+    the static ``pair``.  Returns (ecodes [B,E,NB], pcodes, qcodes
+    [B,2,NQ], qpcodes, ok [B], new_carry); without ``pair``,
+    pcodes/qpcodes are the absent pan channel's zeros."""
     L = _luts(region.device)
     B = region.shape[0]
     pos = phase.long()
@@ -218,8 +221,14 @@ def decode_sbr_rows(region, phase, rbits, ne, nnoise, frbits, n0, n1, nq,
             pos = torch.where(a, pos + 1, pos)
         return torch.stack(out, 1), pos
 
+    # dtdf flags: ch0, then the coupled ch1 (read_sbr_cpe)
     df_env0, pos = flag_bits(pos, ne, E, active)
     df_noi0, pos = flag_bits(pos, nnoise, 2, active)
+    if pair:
+        cact = active & (coupled > 0)
+        df_env1, pos = flag_bits(pos, ne, E, cact)
+        df_noi1, pos = flag_bits(pos, nnoise, 2, cact)
+    # invf: one channel's 2-bit modes (a coupled ch1 copies ch0's)
     pos = torch.where(active, pos + 2 * nq, pos)
     z = torch.zeros_like(ne)
     ecodes, pos, ok = _env_block(
@@ -228,8 +237,16 @@ def decode_sbr_rows(region, phase, rbits, ne, nnoise, frbits, n0, n1, nq,
     qcodes, pos, ok = _noise_block(
         region, pos, ok, nnoise, nq, df_noi0, z, active,
         carry["noise_last"][:, 0], L)
-    pcodes = torch.zeros_like(ecodes)
-    qpcodes = torch.zeros_like(qcodes)
+    if pair:
+        pcodes, pos, ok = _env_block(
+            region, pos, ok, ne, frbits, n0, n1, odd, df_env1, coupled,
+            ampres, cact, carry["env_last"][:, 1], carry["fr_last"][:, 1], L)
+        qpcodes, pos, ok = _noise_block(
+            region, pos, ok, nnoise, nq, df_noi1, coupled, cact,
+            carry["noise_last"][:, 1], L)
+    else:
+        pcodes = torch.zeros_like(ecodes)
+        qpcodes = torch.zeros_like(qcodes)
     ok = ok & torch.where(active, pos <= rbits, True)
 
     laste = (ne - 1).clamp(0, E - 1)
@@ -241,15 +258,22 @@ def decode_sbr_rows(region, phase, rbits, ne, nnoise, frbits, n0, n1, nq,
 
     fr_new = (frbits >> laste) & 1
     cl = carry
+    if pair:
+        env1 = torch.where(cact[:, None], last_row(pcodes, laste),
+                           cl["env_last"][:, 1])
+        noise1 = torch.where(cact[:, None], last_row(qpcodes, lastq),
+                             cl["noise_last"][:, 1])
+        fr1 = torch.where(cact, fr_new, cl["fr_last"][:, 1])
+    else:
+        env1, noise1 = cl["env_last"][:, 1], cl["noise_last"][:, 1]
+        fr1 = cl["fr_last"][:, 1]
     new_carry = dict(
         env_last=torch.stack(
             [torch.where(active[:, None], last_row(ecodes, laste),
-                         cl["env_last"][:, 0]), cl["env_last"][:, 1]], 1),
+                         cl["env_last"][:, 0]), env1], 1),
         noise_last=torch.stack(
             [torch.where(active[:, None], last_row(qcodes, lastq),
-                         cl["noise_last"][:, 0]), cl["noise_last"][:, 1]],
-            1),
+                         cl["noise_last"][:, 0]), noise1], 1),
         fr_last=torch.stack(
-            [torch.where(active, fr_new, cl["fr_last"][:, 0]),
-             cl["fr_last"][:, 1]], 1))
+            [torch.where(active, fr_new, cl["fr_last"][:, 0]), fr1], 1))
     return ecodes, pcodes, qcodes, qpcodes, ok, new_carry

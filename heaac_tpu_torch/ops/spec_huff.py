@@ -1,7 +1,7 @@
 """Parallel AAC spectral-Huffman decode (raw-bits qwire lanes).
 
-Counterpart: ``heaac_tpu/ops/spec_huff.py`` decode_spec_jax with
-with_ms=False, including the EIGHT_SHORT de-interleave.  Every bit offset
+Counterpart: ``heaac_tpu/ops/spec_huff.py`` decode_spec_jax, including
+the EIGHT_SHORT de-interleave and the per-bin M/S mask (``with_ms``).  Every bit offset
 of a lane's spectral region is classified against per-codebook 16-bit
 flat LUTs, code starts are resolved by binary lifting, sections map to
 bins, and the scalefactor delta chain decodes with the same
@@ -53,10 +53,12 @@ def _gather(a, idx):
 
 
 def decode_spec(heap, off, w3, sampling_index: int, NBITS: int,
-                NS: int = 52, SEC: int = 31):
+                with_ms: bool = False, NS: int = 52, SEC: int = 31):
     """heap [N] int (byte values), off [B] spec-block byte offsets, w3 [B]
-    (nbits | nsec<<13 | sfidx0<<18 | flags) -> coeffs [B,1024] f32.
-    Lanes with w3 == 0 decode to zeros."""
+    (nbits | nsec<<13 | sfidx0<<18 | flags) -> coeffs [B,1024] f32, or
+    (coeffs, ms_mask [B,1024] int) with ``with_ms``: the per-bin M/S
+    band mask of the lanes that ship one, for the caller's pair
+    butterfly.  Lanes with w3 == 0 decode to zeros."""
     dev = heap.device
     C = _consts(sampling_index, NS, dev)
     N = heap.shape[0]
@@ -281,4 +283,12 @@ def decode_spec(heap, off, w3, sampling_index: int, NBITS: int,
     out = sign * mag * sf_p
     zero = ((v == 0) | ~coded_p | (ci >= cum_j[:, -1:])
             | ~_gather(code_ok, jj))
-    return torch.where(zero, 0.0, out)
+    out = torch.where(zero, 0.0, out)
+    if not with_ms:
+        return out
+    # bit f of the mask region (right after the section map) -> every bin
+    # of band f, through the same band index as the de-interleave; bins
+    # beyond the last band stay untouched
+    mbyte = g((smap + 3 * nsec)[:, None] + (f52 >> 3))
+    mask_f = ((mbyte >> (7 - (f52 & 7))) & 1) * has_mask[:, None] * in_f
+    return out, _gather(mask_f, fqc) * (beyond_q == 0)

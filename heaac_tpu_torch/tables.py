@@ -48,7 +48,8 @@ SAMPLE_RATES = np.array(
 
 ONLY_LONG, LONG_START, EIGHT_SHORT, LONG_STOP = range(4)
 
-TYPE_SCE, TYPE_CPE, TYPE_CCE, TYPE_LFE = range(4)
+(TYPE_SCE, TYPE_CPE, TYPE_CCE, TYPE_LFE, TYPE_DSE, TYPE_PCE, TYPE_FIL,
+ TYPE_END) = range(8)
 
 # default element layout (lane order) of ADTS channel configs 1..7
 CHANNEL_LAYOUT_MAP = {

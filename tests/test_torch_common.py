@@ -61,18 +61,25 @@ def golden_tool():
 
 
 # the bundled streams by kind: 20-band HE-AAC v2 (benchdata), 34-band
-# HE-AAC v2 (tools/make_torch_streams.py) and their AAC-LC cores
+# HE-AAC v2, stereo HE-AAC v1 and HE-AAC with a coupling channel applied
+# after the IMDCT or before TNS (tools/make_torch_streams.py), and the
+# AAC-LC cores; (file pattern, number of files)
 STREAM_FILES = {
-    "he20": "benchdata/heaac_bench_stream_{}.aac",
-    "he34": "tests/data/heaac_v2_34band_{}.aac",
-    "lc": "benchdata/lc_core_24k_{}.aac",
+    "he20": ("benchdata/heaac_bench_stream_{}.aac", 8),
+    "he34": ("tests/data/heaac_v2_34band_{}.aac", 8),
+    "he_v1s": ("tests/data/heaac_v1_stereo_{}.aac", 8),
+    "cce_after": ("tests/data/heaac_cce_after_{}.aac", 2),
+    "cce_before": ("tests/data/heaac_cce_before_{}.aac", 2),
+    "lc": ("benchdata/lc_core_24k_{}.aac", 8),
 }
 
 
 def streams_of(kind: str, n: int) -> list:
-    """Streams 0..n-1 (mod 8) of one kind, as bytes."""
-    return [open(os.path.join(REPO, STREAM_FILES[kind].format(i % 8)),
-                 "rb").read() for i in range(n)]
+    """Streams 0..n-1 (modulo the number of files) of one kind, as
+    bytes."""
+    pat, files = STREAM_FILES[kind]
+    return [open(os.path.join(REPO, pat.format(i % files)), "rb").read()
+            for i in range(n)]
 
 
 def bench_streams(n: int) -> list:
@@ -88,10 +95,10 @@ def port_parse(n: int, T: int, kind: str = "he20") -> dict:
     streams = streams_of(kind, n)
     dec = QwirePipelinedDecoder(streams, group_streams=n, max_frames=T,
                                 device="cpu")
-    heap, cur, recs = dec._parse_group(streams, 0, T)
+    heap, cur, recs, _ = dec._parse_group(streams, 0, T)
     return dict(heap=heap[:cur + 4096].copy(), recs=recs[:T].copy(),
-                S=dec.S, NB=dec.NB, NS=dec.NS, SEC=dec.SEC,
-                rate_idx=dec.rate_idx, is34=dec.is34)
+                S=dec.S, NB=dec.NB, MS=dec.MS, NS=dec.NS, SEC=dec.SEC,
+                RP=dec.RP, rate_idx=dec.rate_idx, is34=dec.is34)
 
 
 def t(a, dtype=None):

@@ -1,6 +1,8 @@
 """``heaac_tpu_torch.decode_batch`` on the CPU: the mixed list of
-tools/make_torch_golden.py (20-band and 34-band HE-AAC v2, AAC-LC and a
-buffer with no sync word, interleaved) against the committed JAX golden
+tools/make_torch_golden.py (20-band and 34-band HE-AAC v2, stereo HE-AAC
+v1 with M/S and coupled SBR, HE-AAC with a coupling channel applied after
+the IMDCT or before TNS, AAC-LC and a buffer with no sync word,
+interleaved) against the committed JAX golden
 (tests/data/decode_batch_golden_jax.npz, written by that tool; JAX does
 not run here), within 2 int16 LSB, each output in its input's place;
 streams the port cannot take raise NotImplementedError naming them; the
@@ -39,7 +41,7 @@ def test_decode_batch_cpu_matches_golden():
         if name == "garbage":
             assert tuple(pcm.shape) == (0, 1) and int(gold[f"n_{k}"]) == 0
             continue
-        ch = 1 if name.startswith("lc") else 2
+        ch = tool.channels(name)
         rows = T * tool.frame_samples(name)
         assert tuple(pcm.shape) == (rows, ch), name
         want = gold[f"pcm_{k}"][:rows]

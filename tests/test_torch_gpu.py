@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA card (marker ``gpu``; they skip without
 one): kernel K1 against its plain version at the main path's shapes, a
-short main-path decode on the card against the port's CPU decode, and
+short main-path decode on the card against the port's CPU decode, the
+same for stereo HE-AAC v1 (device M/S, coupled SBR rows), and
 decode_batch on the card against its CPU run for a stream of each kind.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
@@ -53,6 +54,24 @@ def test_main_path_on_card_matches_cpu(cuda):
     assert K.launches[30] - before == 8
     cpu = QwirePipelinedDecoder(streams, group_streams=4, max_frames=8,
                                 device="cpu").decode()[0].numpy()
+    assert np.abs(gpu.astype(np.int32) - cpu).max() <= 2
+
+
+def test_stereo_decode_on_card_matches_cpu(cuda):
+    """8 stereo HE-AAC v1 streams x 8 frames (16 lanes): M/S and coupled
+    SBR rows on the card, K1 once per frame, within 2 LSB of the CPU."""
+    streams = streams_of("he_v1s", 8)
+    before = dict(K.launches)
+    dec = QwirePipelinedDecoder(streams, group_streams=8, max_frames=8,
+                                device=cuda)
+    gpu = dec.decode()[0].cpu().numpy()
+    assert (dec.MS, dec.RP) == (1, 1)
+    assert {napb: K.launches[napb] - before[napb] for napb in before} == {
+        30: 8, 50: 0}
+    cpu = QwirePipelinedDecoder(streams, group_streams=8, max_frames=8,
+                                device="cpu").decode()[0].numpy()
+    assert gpu.shape == cpu.shape == (8, 16, 2, 2048)
+    assert np.abs(cpu).max(axis=(0, 2, 3)).min() > 0
     assert np.abs(gpu.astype(np.int32) - cpu).max() <= 2
 
 

@@ -1,7 +1,8 @@
 """The PyTorch port runs without jax: a fresh interpreter in which
 importing ``jax`` or ``heaac_tpu`` fails imports heaac_tpu_torch,
 decodes a benchdata stream on the CPU, and runs decode_batch on a
-34-band HE-AAC v2 and an AAC-LC stream (4 frames each)."""
+34-band HE-AAC v2, an AAC-LC, a stereo HE-AAC v1 and an HE-AAC stream
+with a coupling channel applied after the IMDCT (4 frames each)."""
 import os
 import subprocess
 import sys
@@ -25,7 +26,9 @@ from heaac_tpu_torch import decode_batch
 from heaac_tpu_torch.host import split_adts_stream
 heads = [b"".join(split_adts_stream(open(REPO + f, "rb").read())[:4])
          for f in ("/tests/data/heaac_v2_34band_0.aac",
-                   "/benchdata/lc_core_24k_0.aac")]
+                   "/benchdata/lc_core_24k_0.aac",
+                   "/tests/data/heaac_v1_stereo_0.aac",
+                   "/tests/data/heaac_cce_after_0.aac")]
 outs = decode_batch(heads, device="cpu")
 print("BATCH", [tuple(o.shape) for o in outs],
       [int(o.abs().max()) > 0 for o in outs])
@@ -45,4 +48,5 @@ def test_port_decodes_without_jax():
     peak, diff, loaded = shape_end.split(maxsplit=2)
     assert int(peak) > 1000 and int(diff) <= 2 and loaded == "[]", line
     batch = [x for x in r.stdout.splitlines() if x.startswith("BATCH")][0]
-    assert batch == "BATCH [(8192, 2), (4096, 1)] [True, True]", batch
+    assert batch == ("BATCH [(8192, 2), (4096, 1), (8192, 2), (8192, 2)] "
+                     "[True, True, True, True]"), batch

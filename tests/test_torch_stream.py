@@ -38,7 +38,7 @@ def test_parser_matches_jax_parse_group():
     jheap, jcur, jrecs = jd._parse_group(streams, 0, T)
     pd = QwirePipelinedDecoder(streams, group_streams=LANES, max_frames=T,
                                device="cpu")
-    pheap, pcur, precs = pd._parse_group(streams, 0, T)
+    pheap, pcur, precs, _ = pd._parse_group(streams, 0, T)
     assert pcur == jcur
     assert bytes(pheap[:pcur]) == bytes(jheap[:jcur])
     np.testing.assert_array_equal(precs[:T], jrecs[:T])

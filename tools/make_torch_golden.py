@@ -3,8 +3,8 @@
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir]
 
-Writes two files into tests/data (or out_dir), both from the JAX package
-on the CPU:
+Writes three files into tests/data (or out_dir), all from the JAX
+package on the CPU:
 
   heaac_v2_golden_jax.npz      benchdata/heaac_bench_stream_{0,1}.aac
       parsed by its QwirePipelinedDecoder and decoded by its qwire scan,
@@ -12,16 +12,31 @@ on the CPU:
       (frame, stream, channel, sample), and the scan's carry after frames
       8 and 16 (``carry_mid/...``, ``carry_end/...``: ``flatten_tree``).
   decode_batch_golden_jax.npz  its ``decode_batch`` over the mixed list
-      of ``batch_streams()`` (20-band and 34-band HE-AAC v2, AAC-LC and a
-      buffer with no sync word, interleaved): ``names`` [7], and per
-      entry k ``pcm_k``, the first 16 frames' samples of its [n, ch]
-      int16 output, and ``n_k``, its whole length n.
+      of ``batch_streams()`` (20-band and 34-band HE-AAC v2, stereo
+      HE-AAC v1, HE-AAC with a coupling channel applied after the IMDCT
+      or before TNS, AAC-LC and a buffer with no sync word, interleaved):
+      ``names`` [12], and per entry k ``pcm_k``, the first 16 frames'
+      samples of its [n, ch] int16 output, and ``n_k``, its whole
+      length n.
+  heaac_v1_stereo_expand_golden_jax.npz  tests/data/heaac_v1_stereo_0.aac
+      (one coupled CPE: two lanes) parsed by its QwirePipelinedDecoder
+      (``heap``, ``recs``) and expanded frame by frame by
+      ``qwire.expand_frame_jax(rows_pair=1)`` and
+      ``compact_plan.expand_ps`` (``expand_stereo``): the outputs (core
+      meta, SBR plan, PS codes, PS plan) of frames 8 and 16
+      (``frame_mid/...``, ``frame_end/...``) and the (qwire carry, PS
+      history) after them (``carry_mid/...``, ``carry_end/...``); and the
+      scan prologue with the device M/S butterfly
+      (``_qwire_decode_all_coeffs`` with MS=1, ``prologue_stereo``) over
+      stereo streams 0-1's first 4 frames: ``ms_heap``, ``ms_recs``,
+      ``ms_coeffs`` [4, 4, 1024].
 
-The 34-band streams come from tools/make_torch_streams.py.
-chip_smoke.py holds the port's GPU output to both files;
-tests/test_torch_golden.py regenerates the first and checks it, and
+The 34-band, stereo and CCE streams come from tools/make_torch_streams.py.
+chip_smoke.py holds the port's GPU output to the first two files;
+tests/test_torch_golden.py regenerates the first and checks it,
 tests/test_torch_decode_batch.py holds the port's CPU decode_batch to
-the second.
+the second and tests/test_torch_stereo.py its CPU expand_frame to the
+third.
 """
 import os
 import sys
@@ -32,9 +47,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
 GOLDEN = os.path.join(DATA, "heaac_v2_golden_jax.npz")
 BATCH_GOLDEN = os.path.join(DATA, "decode_batch_golden_jax.npz")
+EXPAND_GOLDEN = os.path.join(DATA, "heaac_v1_stereo_expand_golden_jax.npz")
+STEREO_FILE = "tests/data/heaac_v1_stereo_{}.aac"
 STREAMS = (0, 1)
 FRAMES = 16
 HALF = FRAMES // 2
+MS_STREAMS, MS_FRAMES = 2, 4      # the M/S prologue golden
 # the mixed decode_batch list: (name, file relative to the repo); None is
 # the buffer with no ADTS sync word
 BATCH_LIST = (
@@ -45,6 +63,11 @@ BATCH_LIST = (
     ("he20_1", "benchdata/heaac_bench_stream_1.aac"),
     ("he34_1", "tests/data/heaac_v2_34band_1.aac"),
     ("lc_1", "benchdata/lc_core_24k_1.aac"),
+    ("he_v1s_0", STEREO_FILE.format(0)),
+    ("cce_after_0", "tests/data/heaac_cce_after_0.aac"),
+    ("he_v1s_1", STEREO_FILE.format(1)),
+    ("cce_before_0", "tests/data/heaac_cce_before_0.aac"),
+    ("cce_after_1", "tests/data/heaac_cce_after_1.aac"),
 )
 GARBAGE = bytes(range(0x20, 0x7F)) * 4    # printable bytes: no 0xFF
 
@@ -65,6 +88,13 @@ def batch_streams(repo: str = REPO) -> list:
 def frame_samples(name: str) -> int:
     """Output samples per frame of a BATCH_LIST entry."""
     return 1024 if name.startswith("lc") else 2048
+
+
+def channels(name: str) -> int:
+    """Output channels of a BATCH_LIST entry: AAC-LC mono gives one; PS,
+    a mono HE core (with or without a coupling channel) and stereo
+    HE-AAC v1 give two."""
+    return 1 if name.startswith("lc") else 2
 
 
 def _numpy_tree(x):
@@ -138,6 +168,75 @@ def golden_scan() -> dict:
                 carry_end=carries[1])
 
 
+def expand_stereo() -> dict:
+    """The JAX package's per-frame expansion of the first FRAMES frames of
+    stereo stream 0 with coupled raw SBR rows (expand_frame_jax with
+    rows_pair=1, then expand_ps), eagerly, from fresh carries ->
+    dict(heap, recs, and frame_mid / frame_end: (core_meta, plan, pc,
+    ps_plan) of frames HALF and FRAMES, carry_mid / carry_end: (qwire
+    carry, PS history) after them, as numpy trees)."""
+    sys.path.insert(0, REPO)
+    import jax.numpy as jnp
+    from heaac_tpu.codec import compact_plan, qwire
+    from heaac_tpu.codec.batch import QwirePipelinedDecoder
+    data = open(os.path.join(REPO, STEREO_FILE.format(0)), "rb").read()
+    dec = QwirePipelinedDecoder([data], group_streams=1, max_frames=FRAMES)
+    heap, cur, recs = dec._parse_group([data], 0, FRAMES)
+    if (dec.nl, dec.RP, dec.is34) != (2, 1, 0):
+        raise SystemExit(f"stereo stream 0: lanes {dec.nl}, rows_pair "
+                         f"{dec.RP}, is34 {dec.is34}")
+    heap = heap[:cur + 4096].copy()
+    recs = recs[:FRAMES].copy()
+    jheap = jnp.asarray(heap.astype(np.int32))
+    qc = qwire.init_qcarry(dec.L)
+    ph = compact_plan.init_ps_hist(dec.L)
+    out = dict(heap=heap, recs=recs)
+    for f in range(FRAMES):
+        core_meta, plan, pc, qc = qwire.expand_frame_jax(
+            jheap, jnp.asarray(recs[f]), qc, 0, 1)
+        ps_plan, ph = compact_plan.expand_ps(pc, ph, 0)
+        if f + 1 in (HALF, FRAMES):
+            tag = "mid" if f + 1 == HALF else "end"
+            out[f"frame_{tag}"] = _numpy_tree((core_meta, plan, pc, ps_plan))
+            out[f"carry_{tag}"] = _numpy_tree((qc, ph))
+    return out
+
+
+def prologue_stereo() -> dict:
+    """The JAX scan prologue (``_qwire_decode_all_coeffs`` with MS=1,
+    eagerly) over the first MS_FRAMES frames of stereo streams
+    0..MS_STREAMS-1 as its QwirePipelinedDecoder parses them ->
+    dict(ms_heap, ms_recs [T, L, 4], ms_coeffs [T, L, 1024])."""
+    sys.path.insert(0, REPO)
+    import jax.numpy as jnp
+    from heaac_tpu.codec import heaac_graph
+    from heaac_tpu.codec.batch import QwirePipelinedDecoder
+    streams = [open(os.path.join(REPO, STEREO_FILE.format(i)), "rb").read()
+               for i in range(MS_STREAMS)]
+    dec = QwirePipelinedDecoder(streams, group_streams=MS_STREAMS,
+                                max_frames=MS_FRAMES)
+    heap, cur, recs = dec._parse_group(streams, 0, MS_FRAMES)
+    if dec.MS != 1:
+        raise SystemExit(f"stereo streams: MS {dec.MS}")
+    heap = heap[:cur + 4096].copy()
+    heap = np.concatenate([heap, np.zeros(-len(heap) % 4, np.uint8)])
+    recs = recs[:MS_FRAMES].copy()
+    _, _, coeffs = heaac_graph._qwire_decode_all_coeffs(
+        jnp.asarray(heap.view(np.float32)), jnp.asarray(recs.view(np.float32)),
+        dec.S, dec.rate_idx, dec.NB, dec.MS, dec.NS, dec.SEC)
+    return dict(ms_heap=heap, ms_recs=recs, ms_coeffs=np.asarray(coeffs))
+
+
+def write_stereo_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(EXPAND_GOLDEN))
+    g = expand_stereo()
+    np.savez_compressed(path, heap=g["heap"], recs=g["recs"], **{
+        k: v for key in ("frame_mid", "frame_end", "carry_mid", "carry_end")
+        for k, v in flatten_tree(g[key], key).items()}, **prologue_stereo())
+    print(f"wrote {path}: the expansion of frames {HALF} and {FRAMES} and "
+          f"the carries after them; the M/S prologue of {MS_FRAMES} frames")
+
+
 def batch_golden() -> dict:
     sys.path.insert(0, REPO)
     from heaac_tpu.codec.batch import decode_batch
@@ -167,6 +266,7 @@ def main() -> None:
     print(f"wrote {path}: " + ", ".join(
         f"{name} {z[f'pcm_{k}'].shape} of {int(z[f'n_{k}'])}"
         for k, name in enumerate(z["names"])))
+    write_stereo_golden(out)
 
 
 if __name__ == "__main__":

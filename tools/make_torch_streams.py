@@ -1,32 +1,59 @@
 #!/usr/bin/env python
-"""Write the 34-band HE-AAC v2 test streams of the PyTorch port.
+"""Write the test streams of the PyTorch port.
 
     JAX_PLATFORMS=cpu python tools/make_torch_streams.py [out_dir]
 
-Splices SBR + 34-band parametric stereo into the bundled LC cores
+Every stream is made here from the repo's own encoder and SBR / PS / CCE
+splicers (no downloaded data); three kinds, all written to tests/data
+(or out_dir) and committed: chip_smoke.py and the tests read them as
+files.
+
+heaac_v2_34band_{i}.aac, i in 0..7 (48 kHz stereo out): SBR + 34-band
+parametric stereo spliced into the bundled LC cores
 (benchdata/lc_core_24k_{i}.aac, 24 kHz mono, 50 frames) the way bench.py
-makes its distinct streams (its writer seeds), and writes
-tests/data/heaac_v2_34band_{i}.aac for i in 0..7 (48 kHz stereo out).
+makes its distinct streams (its writer seeds).  PS runs at iid_mode /
+icc_mode 2 (34 bands, coarse IID quantisation); stream 1 uses iid_mode 5
+(fine quantisation), stream 2 enables IPD/OPD, stream 3 both.  Checked
+with the native probe (is34 = 1).
 
-The SBR data signals no inverse filtering (invf_mode 0).  The cores are
-tonal, so a whitened patch (invf_mode 2 or 3) is the small residual of a
-nearly exact two-tap prediction, which the envelope gains then scale up
-to full energy: its float32 rounding reaches the PCM.  On such streams
-the JAX decoder's own jitted and eager runs of one frame differ by
-several int16 LSB, so a 2 LSB check would measure the reference's
-rounding, not the port (tools/torch_ref_noise.py measures both).  The
-inverse filter is exercised by the 20-band bench streams (invf_mode
-0..3) and tests/test_torch_sbr.py.
+heaac_v1_stereo_{i}.aac, i in 0..7 (48 kHz stereo out, 50 frames): stereo
+HE-AAC v1.  The core is the encoder's 64 kb/s 24 kHz CPE with M/S stereo
+over a seeded two-channel signal; odd streams switch windows on added
+transients, so EIGHT_SHORT M/S pairs occur.  The SBR is a coupled CPE
+(balance-coded second channel).  Checked with the port's native probe
+(SBR, 2 lanes) and its parse: device M/S (MS = 1) and coupled raw SBR
+rows (rows_pair = 1) on every stream, short-window M/S lanes on the odd
+ones, and none of the frame shape the JAX package decodes wrongly (an
+uncoupled byte-mode SBR frame after a raw-rows frame on one CPE).
 
-PS runs at iid_mode / icc_mode 2 (34 bands, coarse IID quantisation);
-stream 1 uses iid_mode 5 (fine quantisation), stream 2 enables IPD/OPD,
-stream 3 both.  Each stream is
-checked with the native probe (is34 = 1).  The streams are committed:
-chip_smoke.py and the tests read them as files.
+heaac_cce_{after,before}_{j}.aac, j in 0..1: a mono HE-AAC v1 stream
+(24 kHz core, benchdata/lc_core_24k_{j}.aac) in a PCE layout (channel
+configuration 0) with a coupling channel element each frame, applied
+after the IMDCT ("after": independent coupling, mixed at the output
+rate) or before TNS ("before": dependent coupling, which the native
+parser applies on the host).  Checked with the port's parse: 2 lanes
+(the output SCE, then the CCE lane), one output lane from the PCE, and
+coupling edges on the "after" streams only.  Stream 1's SBR writer is
+seeded 514, not 513: with 513 one band of frame 2 asks a gain of
+3.6e4 of a nearly empty patch, which scales f32 rounding of the patch
+(1e-7 of its peak) up to 2.7 LSB between the port and JAX (JAX jitted
+against eager: 0 LSB); seeds 514-517 give 1 LSB over all 50 frames.
+
+Every SBR writer here signals no inverse filtering (invf_mode 0).  The
+cores are tonal, so a whitened patch (invf_mode 2 or 3) is the small
+residual of a nearly exact two-tap prediction, which the envelope gains
+then scale up to full energy: its float32 rounding reaches the PCM.  On
+such streams the JAX decoder's own jitted and eager runs of one frame
+differ by several int16 LSB, so a 2 LSB check would measure the
+reference's rounding, not the port (tools/torch_ref_noise.py measures
+both).  The inverse filter is exercised by the 20-band bench streams
+(invf_mode 0..3) and tests/test_torch_sbr.py.
 """
 import functools
 import os
 import sys
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "data")
@@ -38,6 +65,10 @@ PS_MAX_BYTES = 160
 # (iid_mode, enable_ipdopd) per stream; icc_mode is 2 throughout
 MODES = {1: (5, False), 2: (2, True), 3: (5, True)}
 INVF_MODES = (0,)      # SBR inverse filtering: none (see above)
+STEREO_FRAMES = 50     # ADTS frames of every stereo stream
+CORE_RATE = 24000
+CCE_POINTS = ("after", "before")
+CCE_SBR_SEEDS = (500, 514)    # per core j (see above)
 
 
 def make_stream(i: int, invf_modes=INVF_MODES) -> bytes:
@@ -56,13 +87,134 @@ def make_stream(i: int, invf_modes=INVF_MODES) -> bytes:
             ps.ps_payload = functools.partial(
                 PsStreamWriter.ps_payload, ps, max_bytes=PS_MAX_BYTES)
             w = SbrStreamWriter(
-                core_rate=24000, is_cpe=False, env_hi_shift=-12,
+                core_rate=CORE_RATE, is_cpe=False, env_hi_shift=-12,
                 seed=1000 + 7 * i + 1000003 * tries,
                 invf_modes=invf_modes, ps_writer=ps)
             return splice_sbr_into_lc(core, w)
         except AssertionError:
             continue
     raise RuntimeError(f"stream {i}: could not fit the FIL payload")
+
+
+def stereo_pcm(i: int) -> np.ndarray:
+    """Stream i's two-channel int16 signal: a mid tone with noise and a
+    small side tone (tests/test_spec_cpe.py's M/S signal, per-stream
+    frequencies); odd streams are quieter and carry a transient burst in
+    both channels every 2048 samples (its short-window M/S case)."""
+    rng = np.random.default_rng(100 + i)
+    n = (STEREO_FRAMES - 1) * 1024     # the encoder adds a lead-in frame
+    t = np.arange(n) / CORE_RATE
+    f_mid, f_side = 500 + 60 * i, 1700 + 90 * i
+    if i % 2:
+        mid = 0.05 * np.sin(2 * np.pi * f_mid * t) \
+            + 0.005 * rng.standard_normal(n)
+        side = 0.01 * np.sin(2 * np.pi * f_side * t)
+        left, right = mid + side, mid - side
+        for p in range(512, n - 96, 2048):
+            left[p:p + 96] += np.hanning(96) * 2.0
+            right[p:p + 96] += np.hanning(96) * 2.0
+    else:
+        mid = 0.4 * np.sin(2 * np.pi * f_mid * t) \
+            + 0.05 * rng.standard_normal(n)
+        side = 0.03 * np.sin(2 * np.pi * f_side * t)
+        left, right = mid + side, mid - side
+    return np.clip(np.stack([left, right], 1) * 3000,
+                   -32768, 32767).astype(np.int16)
+
+
+def make_stereo_stream(i: int) -> bytes:
+    from heaac_tpu.codec.encoder import AacEncoder
+    from heaac_tpu.io.heaac_testgen import SbrStreamWriter, splice_sbr_into_lc
+    core = AacEncoder(CORE_RATE, 2, bitrate=64000, ms=True,
+                      window_switching=bool(i % 2)).encode(stereo_pcm(i))
+    # envelopes 2 steps lower than the mono streams': the coupled pair's
+    # balance would otherwise clip the louder channel
+    w = SbrStreamWriter(core_rate=CORE_RATE, is_cpe=True, coupling=True,
+                        env_hi_shift=-14, seed=300 + 11 * i,
+                        invf_modes=INVF_MODES)
+    return splice_sbr_into_lc(core, w)
+
+
+def make_cce_stream(point: str, j: int) -> bytes:
+    from heaac_tpu.bitstream.aac_syntax import T as TT
+    from heaac_tpu.io.heaac_testgen import (SbrStreamWriter,
+                                            splice_cce_into_lc,
+                                            splice_sbr_multi)
+    core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{j}.aac"),
+                "rb").read()
+    cce = splice_cce_into_lc(core, coupling_point=point, seed=j)
+    w = SbrStreamWriter(core_rate=CORE_RATE, is_cpe=False, env_hi_shift=-12,
+                        seed=CCE_SBR_SEEDS[j], invf_modes=INVF_MODES)
+    return splice_sbr_multi(cce, {(TT.TYPE_SCE, 0): w})
+
+
+def port_parse(data: bytes) -> dict:
+    """The port's native parse of one stream on the CPU: the decoder's
+    lane counts and static decode sizes, its coupling edges, and per
+    frame-lane side flags (raw SBR rows, coupled) and spec-mode w3."""
+    from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+    from heaac_tpu_torch.host import R_TOKOFF, R_W1, R_W2, R_W3
+    dec = QwirePipelinedDecoder([data], group_streams=1, device="cpu")
+    while (r := dec._parse_group([data], 0, dec.T)) is None:
+        dec._grow()                  # heap full: grow and parse again
+    heap, cur, recs, couple = r
+    T = dec.frame_counts[0]
+    recs = recs[:T]
+    w1 = recs[..., R_W1]
+    soff = recs[..., R_TOKOFF] + (w1 & 0xFFFF) + ((w1 >> 16) & 0xFFFF)
+    flags = heap[soff + 1].astype(np.int64)
+    start = flags & 1
+    spec = ((recs[..., R_W2] >> 24) & 15) == 1
+    return dict(nl=dec.nl, out_nl=dec.out_nl, MS=dec.MS, RP=dec.RP,
+                edges=couple, frames=T, start=start,
+                rows=((flags >> 7) & 1) * start, coupled=(flags >> 2) & 1,
+                w3=np.where(spec, recs[..., R_W3], 0))
+
+
+def rows_then_uncoupled_bytes(p: dict) -> bool:
+    """True iff some lane has an uncoupled byte-mode SBR frame after a
+    raw-rows frame: the shape the JAX package's carry refresh gets wrong
+    (it writes ch1's codes into ch0's chain slot), which the port keeps
+    matching and its test streams avoid."""
+    seen_rows = np.cumsum(p["rows"], 0) > 0
+    byte_unc = (p["start"] > 0) & (p["rows"] == 0) & (p["coupled"] == 0)
+    return bool((byte_unc[1:] & seen_rows[:-1]).any())
+
+
+def check_stereo(i: int, data: bytes) -> str:
+    from heaac_tpu_torch import native
+    from heaac_tpu_torch.host import count_adts_frames, parse_adts_header
+    probe = native.Parser().probe(data, parse_adts_header(data[:7]))
+    p = port_parse(data)
+    w3 = p["w3"]
+    short_ms = int((((w3 >> 30) & 1) & ((w3 >> 28) & 1)).sum())
+    bad = []
+    if probe is None or (probe["sbr"], probe["lanes"]) != (1, 2):
+        bad.append(f"probe {probe}")
+    if count_adts_frames(data) != STEREO_FRAMES:
+        bad.append(f"{count_adts_frames(data)} frames")
+    if (p["MS"], p["RP"], p["nl"], p["out_nl"]) != (1, 1, 2, 2):
+        bad.append(f"MS {p['MS']} rows_pair {p['RP']} lanes {p['nl']} "
+                   f"output lanes {p['out_nl']}")
+    if i % 2 and not short_ms:
+        bad.append("no short-window M/S lanes")
+    if rows_then_uncoupled_bytes(p):
+        bad.append("an uncoupled byte-mode SBR frame after a raw-rows frame")
+    if bad:
+        raise SystemExit(f"stereo stream {i}: " + "; ".join(bad))
+    return (f"probe {probe}, MS 1, rows_pair 1, {int(p['rows'].sum())} "
+            f"raw-rows frame-lanes, {short_ms} short-window M/S lanes")
+
+
+def check_cce(point: str, j: int, data: bytes) -> str:
+    p = port_parse(data)
+    want_edges = point == "after"
+    if (p["nl"], p["out_nl"]) != (2, 1) or (p["edges"] is not None) \
+            != want_edges:
+        raise SystemExit(f"CCE stream {point} {j}: lanes {p['nl']}, output "
+                         f"lanes {p['out_nl']}, edges {p['edges']}")
+    ne = 0 if p["edges"] is None else len(p["edges"][0])
+    return f"2 lanes, 1 output lane, {ne} coupling edges"
 
 
 def main() -> None:
@@ -72,6 +224,13 @@ def main() -> None:
     from heaac_tpu.bitstream.reader import BitReader
     out = sys.argv[1] if len(sys.argv) > 1 else OUT
     os.makedirs(out, exist_ok=True)
+
+    def write(name: str, data: bytes, note: str) -> None:
+        path = os.path.join(out, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        print(f"wrote {path}: {len(data)} bytes, {note}", flush=True)
+
     for i in range(N):
         data = make_stream(i)
         h = parse_adts_header(BitReader(data[:7]))
@@ -80,10 +239,15 @@ def main() -> None:
         if p is None or (p["sbr"], p["is34"]) != (1, 1):
             raise SystemExit(f"stream {i}: probe gave {p}, expected SBR "
                              "with 34-band PS")
-        path = os.path.join(out, f"heaac_v2_34band_{i}.aac")
-        with open(path, "wb") as f:
-            f.write(data)
-        print(f"wrote {path}: {len(data)} bytes, probe {p}")
+        write(f"heaac_v2_34band_{i}.aac", data, f"probe {p}")
+    for i in range(N):
+        data = make_stereo_stream(i)
+        write(f"heaac_v1_stereo_{i}.aac", data, check_stereo(i, data))
+    for point in CCE_POINTS:
+        for j in range(2):
+            data = make_cce_stream(point, j)
+            write(f"heaac_cce_{point}_{j}.aac", data,
+                  check_cce(point, j, data))
 
 
 if __name__ == "__main__":

@@ -74,8 +74,8 @@ def main() -> None:
         stages[name] += time.perf_counter() - t0
         return out
 
-    cur, Tg, sa = timed("parse", dec._parse_with_retry, 0)
-    heap_d, recs_d = timed("upload", dec._upload, 0, cur, Tg)
+    cur, Tg, sa, _ = timed("parse", dec._parse_with_retry, 0)
+    heap_d, recs_d, _ = timed("upload", dec._upload, 0, cur, Tg)
     heap, rec_seq, coeffs = timed(
         "prologue", HG.decode_all_coeffs, heap_d, recs_d, sa["S"],
         sa["rate_idx"], sa["NB"], sa["MS"], sa["NS"], sa["SEC"])
