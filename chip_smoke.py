@@ -46,7 +46,27 @@ Phases (any failure exits non-zero):
      tests/data/heaac_v1_stereo_{0..7}.aac; checks device M/S (MS = 1)
      and coupled SBR rows (rows_pair = 1), one K1 launch per frame,
      non-silent lanes, lanes 0-3 within 2 LSB of the port's CPU run and
-     of the JAX golden over 16 frames, and prints the realtime factor.
+     of the JAX golden over 16 frames, and prints the realtime factor;
+  7. flip path: (a) heaac_tpu_torch.decode_batch with its default device
+     over a shuffled list of the 4 flip streams 0-3
+     (tests/data/heaac_v2_flip_{0..3}.aac: the PS band mode flips 20 ->
+     34, 34 -> 20, 20 -> 34 -> 20, 34 -> 20 -> 34), the flip + coupling
+     channel stream (tests/data/heaac_flip_cce_0.aac) and the 8 bundled
+     20-band streams, each its own buffer; checks that each flip stream
+     went through the flip scan (its ``flip_stats`` record) and the
+     20-band streams through batched buckets (``bucket_stats``), that K1
+     ran exactly as those records imply (per successful HE sub-bucket
+     one launch per scan step at its band mode; per flip stream one
+     launch per frame at napb 30 and one at napb 50), and the first 16
+     frames of each flip stream within 2 LSB of the JAX golden
+     (tests/data/flip_golden_jax.npz) and of the port's CPU run; (b) the
+     flip scan at full width: the 8 flip streams parsed once by the
+     port's Python planner, tiled to 512 lanes (``pack_planner_frames``)
+     and decoded by one ``qwire_scan_decode_flip`` call over 50 frames
+     (a warm-up, then a timed run): exactly 50 K1 launches at napb 30
+     and 50 at napb 50, non-silent lanes, lanes 0-7 within 2 LSB of the
+     port's CPU run and of the golden over 16 frames, and the realtime
+     factor beside phase 4's.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -87,6 +107,9 @@ GOLDEN_CHECKED = [(kind, i) for kind in ("he20", "he34", "lc", "he_v1s",
                                          "cce_after") for i in (0, 1)] + [
     ("cce_before", 0)]
 GOLDEN_FRAMES = 16
+FLIP_FILE = "tests/data/heaac_v2_flip_{}.aac"
+FLIP_CCE_FILE = "tests/data/heaac_flip_cce_0.aac"
+FLIP_BATCH = 4                 # flip streams 0-3 in phase 7 (a)
 FLUSH_BYTES = 128 << 20        # > 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -449,6 +472,183 @@ def stereo_main_path(K, card: str, files: dict) -> int:
     return launches[30]
 
 
+class FlipLog(BucketLog):
+    """decode_batch's per-bucket and per-flip-stream records."""
+
+    def __init__(self):
+        super().__init__()
+        self.flips = []
+
+    def emit(self, record):
+        super().emit(record)
+        st = getattr(record, "flip_stats", None)
+        if st is not None:
+            self.flips.append(st)
+
+
+def flip_gold() -> dict:
+    with np.load(golden_tool().FLIP_GOLDEN) as z:
+        return {k: z[k] for k in z.files if k.startswith("pcm_")}
+
+
+def flip_batch(K, card: str, bench: list) -> dict:
+    """Phase 7 (a): decode_batch on the card over the flip streams 0-3,
+    the flip + coupling stream and the 20-band streams, shuffled; returns
+    K1's launches."""
+    from heaac_tpu_torch import decode_batch
+    from heaac_tpu_torch.codec.batch import decode_qwire_flip_stream
+    from heaac_tpu_torch.host import split_adts_stream
+    flips = [(f"flip_{i}", open(os.path.join(REPO, FLIP_FILE.format(i)),
+                                "rb").read()) for i in range(FLIP_BATCH)]
+    flips.append(("flip_cce_0", open(os.path.join(REPO, FLIP_CCE_FILE),
+                                     "rb").read()))
+    items = flips + [(f"he20_{i}", d) for i, d in enumerate(bench)]
+    order = np.random.default_rng(7).permutation(len(items))
+    items = [items[k] for k in order]
+    streams = [bytes(bytearray(d)) for _, d in items]
+    flog = FlipLog()
+    logger = logging.getLogger("heaac_tpu_torch")
+    logger.addHandler(flog)
+    logger.setLevel(logging.INFO)
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs = decode_batch(streams)
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    logger.removeHandler(flog)
+    names = [name for name, _ in items]
+    flip_pos = sorted(k for k, name in enumerate(names)
+                      if name.startswith("flip"))
+    routed = sorted(st["stream"] for st in flog.flips)
+    batched = sum(st["streams"] for st in flog.stats)
+    audio = sum(st["audio_s"] for st in flog.stats + flog.flips)
+    print(f"flip batch: {len(streams)} streams, wall {wall:.3f} s, audio "
+          f"{audio:.3f} s, realtime {audio / wall:.1f}x on {card}; flip "
+          f"scan: streams {routed} ("
+          + ", ".join(f"{names[st['stream']]} {st['wall_s']:.3f} s"
+                      for st in flog.flips)
+          + f"); batched: {batched} streams in {len(flog.stats)} "
+          f"sub-buckets; K1 launches {launches}", flush=True)
+    if routed != flip_pos:
+        raise SystemExit(f"flip streams at {flip_pos}, flip scan took "
+                         f"{routed}")
+    if batched != len(bench) or any(st["key"][0] != "he"
+                                    for st in flog.stats):
+        raise SystemExit(f"{batched} streams decoded batched, expected "
+                         f"the {len(bench)} 20-band streams")
+    expect = {30: 0, 50: 0}
+    for st in flog.stats:              # one launch per scan step
+        expect[50 if st["key"][3] else 30] += st["steps"]
+    for st in flog.flips:              # both band modes in every frame
+        expect[30] += st["frames"]
+        expect[50] += st["frames"]
+    print(f"K1 flip batch: {launches} launches, expected {expect} (sub-"
+          "buckets: " + ", ".join(f"{st['key']} {st['streams']} streams "
+                                  f"{st['steps']} steps"
+                                  for st in flog.stats)
+          + f"; flip streams x frames: "
+          f"{[st['frames'] for st in flog.flips]})", flush=True)
+    if launches != expect:
+        raise SystemExit(f"K1 launched {launches}, expected {expect}")
+    gold = flip_gold()
+    rows = GOLDEN_FRAMES * 2048
+    worst = {}
+    for k in flip_pos:
+        name, data = items[k]
+        head = b"".join(split_adts_stream(data)[:GOLDEN_FRAMES])
+        cpu = decode_qwire_flip_stream(head, device="cpu").numpy().astype(
+            np.int32)
+        got = outs[k].numpy().astype(np.int32)
+        if got.shape != (len(split_adts_stream(data)) * 2048, 2):
+            raise SystemExit(f"{name}: output {got.shape}")
+        want = gold[f"pcm_{name}"]
+        worst[name] = (int(np.abs(got[:rows] - want).max()),
+                       int(np.abs(got[:rows] - cpu).max()),
+                       int(np.abs(cpu - want).max()))
+    print(f"flip streams, first {GOLDEN_FRAMES} frames, max LSB (card vs "
+          f"JAX golden, card vs port CPU, port CPU vs JAX golden): {worst}",
+          flush=True)
+    if max(max(v) for v in worst.values()) > TOL_LSB:
+        raise SystemExit("flip batch: card output differs from the "
+                         "references")
+    for k, (name, _) in enumerate(items):
+        if int(outs[k].abs().max()) == 0:
+            raise SystemExit(f"{name}: silent output")
+    return launches
+
+
+def flip_scan(frames: list, T: int, rate_idx: int, device):
+    """Planner frames of single-lane streams -> one flip scan over T
+    frames on ``device``; returns (pcm [T, lanes, 2, 2048] int16 on the
+    host, seconds of upload + scan)."""
+    from heaac_tpu_torch.codec import heaac_graph
+    from heaac_tpu_torch.codec.batch import pack_planner_frames
+    from heaac_tpu_torch.host import R_W1, spec_static_args
+    heap, _, recs = pack_planner_frames(frames, 1, T)
+    S = -(-max(64, int((recs[..., R_W1] & 0xFFFF).max())) // 64) * 64
+    sa = spec_static_args(recs)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = heaac_graph.init_qwire_flip_carry(len(frames), device)
+    _, pcm = heaac_graph.qwire_scan_decode_flip(
+        torch.from_numpy(heap).to(device), torch.from_numpy(recs).to(device),
+        carry, 0, S, rate_idx, sa["NB"], sa["NS"], sa["SEC"])
+    if cuda:
+        torch.cuda.synchronize()
+    return pcm.cpu().numpy(), time.perf_counter() - t0
+
+
+def flip_full_width(K, card: str, device="cuda") -> dict:
+    """Phase 7 (b): the 8 flip streams tiled to LANES lanes, one flip
+    scan over all frames on the card; returns K1's launches and the
+    realtime factor."""
+    from heaac_tpu_torch.codec.planner import parse_stream_qwire
+    from heaac_tpu_torch.host import parse_adts_header
+    data = [open(os.path.join(REPO, FLIP_FILE.format(i)), "rb").read()
+            for i in range(8)]
+    rate_idx = parse_adts_header(data[0][:7]).sampling_index
+    t0 = time.perf_counter()
+    parsed = [parse_stream_qwire(d, is34_out=[])[0] for d in data]
+    parse_s = time.perf_counter() - t0
+    T = len(parsed[0])
+    lanes = [parsed[i % 8] for i in range(LANES)]
+    flip_scan(lanes, T, rate_idx, device)          # warm-up
+    reset_launches(K)
+    pcm, wall = flip_scan(lanes, T, rate_idx, device)
+    launches = dict(K.launches)
+    audio_s = LANES * T * 2048 / 48000
+    print(f"flip scan full width: {LANES} lanes x {T} frames, audio "
+          f"{audio_s:.3f} s, upload + scan {wall:.3f} s, realtime "
+          f"{audio_s / wall:.1f}x on {card} (planner parse of the 8 "
+          f"streams {parse_s:.3f} s); K1 launches {launches}", flush=True)
+    if launches != {30: T, 50: T}:
+        raise SystemExit(f"K1 launched {launches} for {T} frames of the "
+                         "flip scan (expected one per frame per napb)")
+    peak = np.abs(pcm.astype(np.int32)).max(axis=(0, 2, 3))
+    if not (peak > 0).all():
+        raise SystemExit(f"silent lanes: {np.flatnonzero(peak == 0)}")
+    cpu, _ = flip_scan([p[:GOLDEN_FRAMES] for p in parsed], GOLDEN_FRAMES,
+                       rate_idx, "cpu")
+    got = pcm[:GOLDEN_FRAMES, :8].astype(np.int32)
+    d_cpu = int(np.abs(got - cpu).max())
+    gold = flip_gold()
+    rows = lambda a, i: a[:, i].transpose(0, 2, 1).reshape(-1, 2)  # noqa
+    d_gold = max(int(np.abs(rows(got, i) - gold[f"pcm_flip_{i}"]).max())
+                 for i in range(8))
+    d_cpu_gold = max(int(np.abs(rows(cpu, i).astype(np.int32)
+                                - gold[f"pcm_flip_{i}"]).max())
+                     for i in range(8))
+    print(f"flip lanes 0-7 x {GOLDEN_FRAMES} frames vs port CPU: max "
+          f"{d_cpu} LSB; vs JAX golden: max {d_gold} LSB; port CPU vs JAX "
+          f"golden: max {d_cpu_gold} LSB", flush=True)
+    if max(d_cpu, d_gold, d_cpu_gold) > TOL_LSB:
+        raise SystemExit("flip scan: card output differs from the "
+                         "references")
+    return dict(launches=launches, realtime=audio_s / wall)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -497,9 +697,10 @@ def main() -> None:
     pcm = outs[0].cpu().numpy()                    # [T, L, 2, 2048] int16
     T = pcm.shape[0]
     audio_s = dec.audio_seconds()
+    main_rt = audio_s / wall
     print(f"main path: {LANES} lanes x {T} frames, audio {audio_s:.3f} s, "
           f"wall {wall:.3f} s (warm-up {warm_s:.3f} s), realtime "
-          f"{audio_s / wall:.1f}x on {card}; K1 launches {launches}",
+          f"{main_rt:.1f}x on {card}; K1 launches {launches}",
           flush=True)
     if launches != T or K.launches[50]:
         raise SystemExit(f"K1 launched {K.launches} times (napb: count) "
@@ -532,6 +733,14 @@ def main() -> None:
     stereo30 = stereo_main_path(K, card, files)
     phase_done("6 stereo main path")
 
+    # ---- 7. flip path -------------------------------------------------------
+    flip_a = flip_batch(K, card, bench)
+    flip_b = flip_full_width(K, card)
+    print(f"realtime: flip scan {flip_b['realtime']:.1f}x, main path "
+          f"(phase 4) {main_rt:.1f}x, {LANES} lanes x 50 frames each",
+          flush=True)
+    phase_done("7 flip path")
+
     row = dict(krows[30])
     row.pop("max_abs_err")
     print(json.dumps({"kernels": [{
@@ -550,7 +759,16 @@ def main() -> None:
         "launches_phase6_napb30": stereo30,
         "launches_phase6_napb30_path": "phase 6: QwirePipelinedDecoder, "
                                        f"{GROUP_LANES} stereo HE-AAC v1 "
-                                       "streams"}]}))
+                                       "streams",
+        "launches_phase7a_napb30": flip_a[30],
+        "launches_phase7a_napb50": flip_a[50],
+        "launches_phase7a_path": "phase 7 (a): decode_batch, 4 flip "
+                                 "streams, the flip + coupling stream "
+                                 "and 8 20-band streams",
+        "launches_phase7b_napb30": flip_b["launches"][30],
+        "launches_phase7b_napb50": flip_b["launches"][50],
+        "launches_phase7b_path": f"phase 7 (b): qwire_scan_decode_flip, "
+                                 f"{LANES} lanes x 50 frames"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,62 @@
+"""Port copy of ``heaac_tpu/bitstream/adts.py`` (lines 1-59: the header
+parse; split_adts_stream is ``heaac_tpu_torch.host``'s), numpy only: the
+port imports nothing of the JAX package, so it keeps its own copy of the
+host parser (tables from ``heaac_tpu_torch.tables``).  Names as there.
+
+ADTS header parsing and stream framing.
+
+Mirrors the reference contract:
+* header fields/validation: libavcodec/aac_parser.c:29-70 (ff_aac_parse_header)
+* stream re-framing into one ADTS frame per packet:
+  libavcodec/aac_ac3_parser.c:26-101 (sync-scan state machine); here we frame
+  a whole in-memory stream at once since decode is batched, not streaming.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..tables import SAMPLE_RATES
+from .reader import BitReader, BitstreamError
+
+ADTS_HEADER_SIZE = 7
+
+
+@dataclass(frozen=True)
+class AdtsHeader:
+    object_type: int      # profile + 1 (1=Main, 2=LC)
+    sampling_index: int
+    sample_rate: int
+    chan_config: int
+    crc_absent: int
+    frame_length: int     # whole ADTS frame incl. header
+    num_aac_frames: int
+
+
+def parse_adts_header(br: BitReader) -> AdtsHeader:
+    if br.get(12) != 0xFFF:
+        raise BitstreamError("bad ADTS syncword")
+    br.skip(1)              # id
+    br.skip(2)              # layer
+    crc_abs = br.get1()     # protection_absent
+    aot = br.get(2)         # profile_objecttype
+    sr = br.get(4)          # sampling_frequency_index
+    if SAMPLE_RATES[sr] == 0:
+        raise BitstreamError(f"bad ADTS sample rate index {sr}")
+    br.skip(1)              # private_bit
+    ch = br.get(3)          # channel_configuration
+    br.skip(2)              # original/copy, home
+    br.skip(2)              # copyright id bit/start
+    size = br.get(13)       # aac_frame_length
+    if size < ADTS_HEADER_SIZE:
+        raise BitstreamError(f"bad ADTS frame length {size}")
+    br.skip(11)             # adts_buffer_fullness
+    rdb = br.get(2)         # number_of_raw_data_blocks_in_frame
+    return AdtsHeader(
+        object_type=aot + 1,
+        sampling_index=sr,
+        sample_rate=int(SAMPLE_RATES[sr]),
+        chan_config=ch,
+        crc_absent=crc_abs,
+        frame_length=size,
+        num_aac_frames=rdb + 1,
+    )

@@ -1,7 +1,8 @@
 """Batched decode of many independent streams, and the mixed-batch
 front door ``decode_batch``.
 
-Counterparts: ``heaac_tpu/codec/batch.py`` — QwirePipelinedDecoder,
+Counterparts: ``heaac_tpu/codec/batch.py`` — QwirePipelinedDecoder
+(with its Python-planner fallback), decode_qwire_flip_stream,
 LcStreamBatchDecoder, decode_batch, _decode_bucket_retry, _decode_bucket.
 
 QwirePipelinedDecoder (HE-AAC v1/v2): the native parser (``native.py``)
@@ -10,7 +11,9 @@ writes each group of streams into a byte heap + per-frame-lane records
 CUDA, two sets); each group is uploaded with non-blocking copies and
 decoded by the whole-stream scan (``heaac_graph.qwire_scan_decode``).
 The parse of group g+1 runs on a worker thread (the native call releases
-the GIL) while the main thread issues group g's decode.  A stream's lanes
+the GIL) while the main thread issues group g's decode.  A stream the
+native parser refuses is parsed by the Python planner
+(``planner.parse_stream_qwire``) into the same staging.  A stream's lanes
 are its output channels (a CPE two, PS or a mono core one), then one
 lane per coupling channel element; AFTER_IMDCT coupling travels as
 per-group edge arrays beside the heap and records.
@@ -24,9 +27,10 @@ Differences from the JAX package:
     of the first two frames, not the Python planner; the output lanes of
     a channel configuration 0 stream come from its first frame's program
     config element (``host.pce_lanes``);
-  - what the JAX package hands to the Python planner, the single-stream
-    ``Decoder`` or the band-mode-flip scan raises NotImplementedError
-    naming the stream (none of them is ported);
+  - a stream whose PS band mode flips mid-stream goes, after the bisect,
+    through ``decode_qwire_flip_stream``; what the JAX package hands to
+    its single-stream ``Decoder`` (and downsampled SBR) raises
+    NotImplementedError naming the stream;
   - the heap travels as a uint8 tensor (the f32 view existed only for
     the TPU transport).
 """
@@ -43,10 +47,13 @@ import torch
 from .. import native
 from .. import tables as TB
 from ..device import resolve
-from ..host import (R_W1, REC_W, count_adts_frames, parse_adts_header,
-                    pce_lanes, rows_pair_static, silence_lane,
-                    spec_static_args, split_adts_stream)
-from .heaac_graph import init_qwire_carry, lc_scan_decode, qwire_scan_decode
+from ..host import (R_TOKOFF, R_W1, REC_W, count_adts_frames,
+                    parse_adts_header, pce_lanes, rows_pair_static,
+                    silence_lane, spec_static_args, split_adts_stream)
+from .heaac_graph import (init_qwire_carry, init_qwire_flip_carry,
+                          lc_scan_decode, qwire_scan_decode,
+                          qwire_scan_decode_flip)
+from .planner import parse_stream_qwire
 
 log = logging.getLogger("heaac_tpu_torch")
 
@@ -78,6 +85,49 @@ def _flatten_couple(couples: list, nl: int, T: int):
     return e[:, 0], e[:, 1], e[:, 2], np.concatenate(cols, 1)
 
 
+def pack_planner_frames(streams_frames: list, nl: int, T: int, heap=None,
+                        cur: int = 0, recs=None, lane0: int = 0):
+    """Write planner frames (``parse_stream_qwire``'s: per frame a list of
+    (payload, record) per lane) of several streams into a byte heap and
+    records: stream k's frame t, lane ln goes to recs[t, lane0 + k * nl +
+    ln], its payload to the heap from byte ``cur`` on.  Frame-lanes a
+    stream does not reach keep their records.  Without ``heap`` and
+    ``recs`` fresh ones are made: the silence lane's payload at byte 0,
+    every record pointing at it, and room for every payload plus 4 KB
+    of zeros.  -> (heap uint8 [N], cur, recs int32 [T, L, REC_W]), or None
+    when the payloads do not fit in ``heap``."""
+    if heap is None:
+        sil_payload, sil_rec = silence_lane()
+        size = len(sil_payload) + sum(len(p) for frames in streams_frames
+                                      for fr in frames[:T] for p, _ in fr)
+        heap = np.zeros(size + 4096, np.uint8)
+        heap[:len(sil_payload)] = np.frombuffer(sil_payload, np.uint8)
+        cur = len(sil_payload)
+        recs = np.broadcast_to(
+            sil_rec, (T, lane0 + len(streams_frames) * nl, REC_W)).copy()
+    for k, frames in enumerate(streams_frames):
+        base = lane0 + k * nl
+        for t, fr in enumerate(frames[:T]):
+            for ln, (payload, rec) in enumerate(fr):
+                if cur + len(payload) > heap.nbytes:
+                    return None
+                heap[cur:cur + len(payload)] = np.frombuffer(payload,
+                                                             np.uint8)
+                recs[t, base + ln] = rec
+                recs[t, base + ln, R_TOKOFF] = cur
+                cur += len(payload)
+    return heap, cur, recs
+
+
+def _planner_couple(couple):
+    """parse_stream_qwire's coupling series (edge list, gains) -> the
+    native parser's (edges [K, 3] int array, gains [T, K]), or None."""
+    if couple is None:
+        return None
+    struct, gains = couple
+    return np.array(struct, np.int64).reshape(-1, 3), gains
+
+
 class QwirePipelinedDecoder:
     """End-to-end pipelined batched decode over the quantized wire
     format; ``decode()`` returns one pcm tensor [T, L, 2, 2048] int16 per
@@ -85,7 +135,10 @@ class QwirePipelinedDecoder:
     ``device="cpu"`` (without a card the default raises RuntimeError).
     Stream i sits in group ``group_of[i]`` at lanes ``slot_of[i] * nl``
     onwards; its first ``out_nl`` lanes are output channels, the rest
-    its coupling channels' lanes."""
+    its coupling channels' lanes.  A stream the native parser refuses
+    is parsed by the Python planner; one whose PS band mode flips raises
+    NotImplementedError("PS band mode changes mid-stream"), which
+    ``decode_batch`` answers with ``decode_qwire_flip_stream``."""
 
     def __init__(self, streams, group_streams: int = 256,
                  max_frames: int | None = None, token_cap: int = 640,
@@ -98,7 +151,8 @@ class QwirePipelinedDecoder:
         probe = self.parser.probe(self.streams[0], self.hdr)
         if probe is None:
             raise NotImplementedError(
-                "stream 0 needs the Python planner, which is not ported")
+                "stream 0: the native probe cannot take it, and the Python "
+                "profile parse is not ported")
         self.nl = probe["lanes"]
         if self.hdr.chan_config:
             self.out_nl = _layout_lanes(self.hdr.chan_config)
@@ -110,8 +164,8 @@ class QwirePipelinedDecoder:
             raise NotImplementedError(
                 f"stream 0: {self.nl} lanes where its layout has "
                 f"{self.out_nl} output and {n_cce} coupling channel lanes "
-                "(a layout change needs the Python planner, which is not "
-                "ported)")
+                "(a layout change needs the Python profile parse, which is "
+                "not ported)")
         counts = [count_adts_frames(s) for s in self.streams]
         if max_frames is not None:
             counts = [min(c, max_frames) for c in counts]
@@ -187,7 +241,9 @@ class QwirePipelinedDecoder:
         """Parse one group into staging set ``bufset`` -> (heap, cur, recs)
         numpy views and the group's AFTER_IMDCT edges (``_flatten_couple``;
         arrays of their own, so the next parse cannot overwrite them), or
-        None when the heap overflowed (grow + retry)."""
+        None when the heap overflowed (grow + retry).  A stream the native
+        parser refuses (or whose lanes differ from the group's) is parsed
+        again by the Python planner, as the JAX package does."""
         self._wait_uploads((bufset,))
         _, _, heap, recs = self._buffers(bufset)
         recs[:T] = self._sil_recs[:T]
@@ -218,32 +274,40 @@ class QwirePipelinedDecoder:
                     h.chan_config, heap_p, heap.nbytes, C.byref(cur_c),
                     recs_p, T, recs.shape[1], lane0, info_p, cedges_p,
                     cgains_p, native.EDGE_MAX)
-            if nf == -3:
+            if nf >= 0 and int(info[0]) == self.nl:
+                if int(info[2]) != self.is34:
+                    raise ValueError(
+                        f"stream {gi} of the group: PS band mode is34="
+                        f"{int(info[2])} in a batch of is34={self.is34}; "
+                        "route mixed inputs through decode_batch")
+                cur = int(cur_c.value)
+                ne = int(info[4])
+                if ne:
+                    edges_dirty = True
+                if n_real is None or gi < n_real:
+                    self.error_count += int(info[3])
+                    if ne:
+                        couples[gi] = (
+                            cedges[:3 * ne].reshape(ne, 3).copy(),
+                            cgains[:nf, :ne].copy())
+                self.frame_counts.append(nf)
+                if nf < T:
+                    recs[nf:T, lane0:lane0 + self.nl] = \
+                        self._sil_recs[nf:T, lane0:lane0 + self.nl]
+                continue
+            cur_c.value = cur          # drop the native parse's writes
+            edges_dirty = True         # it may have written gains
+            if nf == -3:               # heap full: grow + retry the group
                 del self.frame_counts[n_counts0:]
                 self.error_count = err0
                 return None
-            if nf < 0 or int(info[0]) != self.nl:
-                raise NotImplementedError(
-                    f"stream {gi} of the group needs the Python planner, "
-                    "which is not ported")
-            ne = int(info[4])
-            if ne:
-                edges_dirty = True
-                if n_real is None or gi < n_real:
-                    couples[gi] = (cedges[:3 * ne].reshape(ne, 3).copy(),
-                                   cgains[:nf, :ne].copy())
-            if int(info[2]) != self.is34:
-                raise NotImplementedError(
-                    f"stream {gi} of the group: PS band mode is34="
-                    f"{int(info[2])} in a batch of is34={self.is34} (a "
-                    "mid-stream band-mode flip), which is not ported")
-            cur = int(cur_c.value)
-            if n_real is None or gi < n_real:
-                self.error_count += int(info[3])
-            self.frame_counts.append(nf)
-            if nf < T:
-                recs[nf:T, lane0:lane0 + self.nl] = \
-                    self._sil_recs[nf:T, lane0:lane0 + self.nl]
+            cur = self._parse_planner(gi, data, heap, cur, recs, T, lane0,
+                                      n_real, couples)
+            if cur is None:
+                del self.frame_counts[n_counts0:]
+                self.error_count = err0
+                return None
+            cur_c.value = cur
         maxtok = int((recs[:T, :, R_W1] & 0xFFFF).max())
         if maxtok > self.S:
             self.S = -(-maxtok // 64) * 64
@@ -254,6 +318,36 @@ class QwirePipelinedDecoder:
         self.SEC = max(self.SEC, sa["SEC"])
         self.RP = max(self.RP, rows_pair_static(heap[:cur], recs[:T]))
         return heap, cur, recs, _flatten_couple(couples, self.nl, T)
+
+    def _parse_planner(self, gi: int, data: bytes, heap, cur: int, recs,
+                       T: int, lane0: int, n_real, couples: list):
+        """The Python planner's parse of stream ``gi`` of the group into the
+        staging at lane0 (JAX batch.py:1093-1127) -> the new heap cursor,
+        or None when the heap is full."""
+        log.info("qwire pipelined decode: stream %d fell back to the Python "
+                 "planner", gi)
+        errs, pinfo = [], {}
+        frames_q, rate, nl, is34, ds = parse_stream_qwire(
+            data, max_frames=T, err_out=errs, info_out=pinfo)
+        if ds:
+            raise NotImplementedError(
+                f"stream {gi} of the group: downsampled SBR, which is not "
+                "ported")
+        if (rate, nl, is34) != (self.sample_rate, self.nl, self.is34):
+            raise ValueError(
+                f"stream {gi} of the group: profile (rate, lanes, is34) "
+                f"{(rate, nl, is34)} differs from the batch's "
+                f"{(self.sample_rate, self.nl, self.is34)}; route mixed "
+                "inputs through decode_batch")
+        if n_real is None or gi < n_real:
+            self.error_count += errs[0]
+            couples[gi] = _planner_couple(pinfo["couple"])
+        r = pack_planner_frames([frames_q], self.nl, T, heap, cur, recs,
+                                lane0)
+        if r is None:
+            return None
+        self.frame_counts.append(len(frames_q))
+        return r[1]
 
     def _static_args(self) -> dict:
         return dict(S=self.S, rate_idx=self.rate_idx, NB=self.NB, MS=self.MS,
@@ -329,6 +423,42 @@ class QwirePipelinedDecoder:
     def audio_seconds(self) -> float:
         spf = 1024 << (not self.ds)
         return sum(fc * spf / self.sample_rate for fc in self.frame_counts)
+
+
+def decode_qwire_flip_stream(data: bytes, max_frames: int | None = None,
+                             device="cuda") -> torch.Tensor:
+    """Decode one HE-AAC v2 stream whose PS band mode flips between 20
+    and 34 bands mid-stream, through the flip scan
+    (``heaac_graph.qwire_scan_decode_flip``) on ``device`` (the card
+    unless the caller passes ``device="cpu"``).  The Python planner
+    parses it with the flip trail on: each frame's band mode rides side
+    bit 6.  An AFTER_IMDCT coupling channel is mixed into the float PCM
+    before rounding.  Returns a CPU int16 tensor [n, ch] like
+    ``decode_batch``'s (a mono core gives stereo)."""
+    dev = resolve(device)
+    info = {}
+    # a list for the band-mode trail lets the planner accept the flips
+    frames_q, _, nl, _, ds = parse_stream_qwire(
+        data, max_frames=max_frames, is34_out=[], info_out=info)
+    T = len(frames_q)
+    heap, cur, recs = pack_planner_frames([frames_q], nl, T)
+    S = -(-max(64, int((recs[..., R_W1] & 0xFFFF).max())) // 64) * 64
+    sa = spec_static_args(recs)
+    couple = _flatten_couple([_planner_couple(info["couple"])], nl, T)
+    if couple is not None:
+        couple = tuple(torch.from_numpy(a).to(dev) for a in couple)
+    carry = init_qwire_flip_carry(nl, dev)
+    _, pcm = qwire_scan_decode_flip(
+        torch.from_numpy(heap).to(dev), torch.from_numpy(recs).to(dev),
+        carry, ds, S, rate_idx=parse_adts_header(data[:7]).sampling_index,
+        NB=sa["NB"], NS=sa["NS"], SEC=sa["SEC"],
+        rows_pair=rows_pair_static(heap[:cur], recs), couple=couple)
+    pcm = pcm.cpu()                            # [T, nl, 2, 2048]
+    out_nl = info["out_nl"]
+    if out_nl == 1:
+        return pcm[:, 0].permute(0, 2, 1).reshape(-1, 2)
+    return torch.stack([pcm[:, k, 0].reshape(-1) for k in range(out_nl)],
+                       -1)
 
 
 class LcStreamBatchDecoder:
@@ -451,20 +581,27 @@ def decode_batch(streams, device="cuda") -> list:
 
 def _decode_bucket_retry(key, idxs, streams, results, device,
                          depth: int = 0):
-    """Decode one bucket; on failure bisect it, so that the stream at
-    fault is named, and raise NotImplementedError for it (the JAX
-    package decodes it with the single-stream decoder or the band-mode
-    flip scan, neither of which is ported)."""
+    """Decode one bucket; on failure bisect it down to the stream at
+    fault.  A single stream whose batched decode failed on a PS band-mode
+    flip is decoded by ``decode_qwire_flip_stream`` (logged at INFO with
+    a ``flip_stats`` dict: stream, frames, audio and wall seconds); any
+    other raises NotImplementedError naming it (the JAX package decodes
+    it with its single-stream decoder, which is not ported)."""
     try:
         _decode_bucket(key, [streams[i] for i in idxs], idxs, results,
                        device)
         return
     except Exception as exc:  # noqa: BLE001 - bisect, then name the stream
         if len(idxs) == 1:
+            if isinstance(exc, NotImplementedError) \
+                    and "PS band mode" in str(exc):
+                _decode_flip(idxs[0], streams[idxs[0]], results, device)
+                return
             raise NotImplementedError(
                 f"stream {idxs[0]}: its batched decode failed "
-                f"({type(exc).__name__}: {exc}) and the single-stream "
-                "decoder that would take it is not ported") from exc
+                f"({type(exc).__name__}: {exc}) and what the JAX package "
+                "decodes it with (its single-stream decoder, or for AAC-LC "
+                "its Python planner) is not ported") from exc
         if depth == 0:
             log.warning("decode_batch: bucket %s (%d streams) failed (%s: "
                         "%s); bisecting to isolate the offender", key,
@@ -474,6 +611,18 @@ def _decode_bucket_retry(key, idxs, streams, results, device,
                          depth + 1)
     _decode_bucket_retry(key, idxs[mid:], streams, results, device,
                          depth + 1)
+
+
+def _decode_flip(i: int, data: bytes, results, device) -> None:
+    t0 = time.perf_counter()
+    results[i] = decode_qwire_flip_stream(data, device=device)
+    rows = results[i].shape[0]                 # 2048 per frame at 2x rate
+    stats = dict(stream=i, frames=rows // 2048,
+                 audio_s=rows / (2 * parse_adts_header(data[:7]).sample_rate),
+                 wall_s=time.perf_counter() - t0)
+    log.info("decode_batch: stream %d decoded via the PS band-mode-flip "
+             "scan: %d frames, %.3f s of audio in %.6f s", i, stats["frames"],
+             stats["audio_s"], stats["wall_s"], extra={"flip_stats": stats})
 
 
 def _decode_bucket(key, group, idxs, results, device):
@@ -500,6 +649,7 @@ def _decode_bucket(key, group, idxs, results, device):
                 results[i] = torch.stack(
                     [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1)
     stats = dict(key=key, streams=len(idxs), frames=sum(bd.frame_counts),
+                 steps=bd.T if key[0] == "lc" else sum(bd.group_T),
                  audio_s=bd.audio_seconds(),
                  wall_s=time.perf_counter() - t0)
     log.info("decode_batch: bucket %s: %d streams, %d frames, %.3f s of "

@@ -1,10 +1,13 @@
 """The per-frame HE-AAC v2 device graph and the whole-stream scan.
 
 Counterpart: ``heaac_tpu/codec/heaac_graph.py`` — HeaacState/init_state,
-heaac_frame (is34 0 or 1, downsampled=0, with the ps_on gate and the PS
-state freeze), init_qwire_carry, heaac_frame_qwire,
-_qwire_decode_all_coeffs (with the device M/S pair butterfly),
-qwire_scan_decoder and qwire_scan_decoder_couple; and the AAC-LC scan
+_ps_stage, heaac_frame (is34 0, 1 or 2 = both band modes selected per
+lane, downsampled=0, with the ps_on gate and the PS state freeze),
+init_qwire_carry, heaac_frame_qwire, _qwire_decode_all_coeffs (with the
+device M/S pair butterfly), qwire_scan_decoder,
+qwire_scan_decoder_couple, and the band-mode flip scan
+(_convert_ps_flip, _flip_scan, qwire_scan_decoder_flip[_couple],
+init_qwire_flip_carry); and the AAC-LC scan
 (``heaac_tpu/codec/batch.py`` _make_lc_scan_decoder, couple=False).
 One frame for B lanes: core IMDCT / overlap-add -> QMF analysis -> SBR
 HF reconstruction -> parametric stereo -> QMF synthesis.  The scans are
@@ -54,18 +57,41 @@ def init_state(B: int, device) -> HeaacState:
         for k, s in STATE_SHAPES.items()})
 
 
-def _require_static(is34: int, downsampled: int) -> None:
-    if is34 not in (0, 1) or downsampled:
+def _require_full_rate(downsampled: int) -> None:
+    if downsampled:
         raise NotImplementedError(
-            "only one PS band mode per scan (is34 0 or 1) at full-rate "
-            "synthesis (downsampled=0) is ported")
+            "downsampled SBR (32-band synthesis) is not ported")
+
+
+def _select(m, a1, a0):
+    """Per lane: a1 where m [B] > 0, else a0 (never a blend, so nothing
+    of the branch not taken reaches the result)."""
+    return torch.where((m > 0).reshape((-1,) + (1,) * (a1.dim() - 1)), a1,
+                       a0)
+
+
+def _ps_stage(X, state: HeaacState, ps_plan, is34: int):
+    """The parametric-stereo block for one band mode: X [B,2,38,64] ->
+    (Lp, Rp, new in_buf, new decorrelation state dict)."""
+    lbuf, ps_in_buf = ps.hybrid_analysis(X, state.ps_in_buf, is34)
+    ps_state = dict(delay=state.ps_delay, ap=state.ps_ap,
+                    trans=state.ps_trans)
+    lmix, rmix, ps_new = ps.decorrelate_and_mix(lbuf, ps_state, ps_plan,
+                                                 is34)
+    return (ps.hybrid_synthesis(lmix, is34), ps.hybrid_synthesis(rmix, is34),
+            ps_in_buf, ps_new)
 
 
 def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
                 downsampled: int = 0):
     """One frame for B mono HE-AACv2 lanes -> (pcm [B,2,2048] f32,
-    new state)."""
-    _require_static(is34, downsampled)
+    new state).  is34 = 2 runs the PS stage in both band modes (K1 at
+    napb 30 and at napb 50) on the same state and plan and takes each
+    lane's result from the mode ``ps_plan["m34"]`` [B] names: the band
+    layouts are fixed per mode, so a lane whose mode flips needs both."""
+    _require_full_rate(downsampled)
+    if is34 not in (0, 1, 2):
+        raise ValueError(f"is34 must be 0, 1 or 2, not {is34}")
     m2048, m256, bank = core_consts(state.saved.device)
     time_out, saved = core_frame(core["coeffs"], state.saved, core["ws"],
                                  core["wsp"], core["kbd"], core["kbdp"],
@@ -83,13 +109,15 @@ def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
         X_high, gain, q_m, s_m, state.g_temp, state.q_temp, plan)
     X, y_cur = sbr.x_gen(X_low, Y_m, state.Y_prev, env_on, plan)
 
-    lbuf, ps_in_buf = ps.hybrid_analysis(X, state.ps_in_buf, is34)
-    ps_state = dict(delay=state.ps_delay, ap=state.ps_ap,
-                    trans=state.ps_trans)
-    lmix, rmix, ps_new = ps.decorrelate_and_mix(lbuf, ps_state, ps_plan,
-                                                 is34)
-    Lp = ps.hybrid_synthesis(lmix, is34)
-    Rp = ps.hybrid_synthesis(rmix, is34)
+    if is34 == 2:
+        m34 = ps_plan["m34"]
+        r0 = _ps_stage(X, state, ps_plan, 0)
+        r1 = _ps_stage(X, state, ps_plan, 1)
+        Lp, Rp, ps_in_buf = (_select(m34, a1, a0)
+                             for a1, a0 in zip(r1[:3], r0[:3]))
+        ps_new = {k: _select(m34, r1[3][k], r0[3][k]) for k in r0[3]}
+    else:
+        Lp, Rp, ps_in_buf, ps_new = _ps_stage(X, state, ps_plan, is34)
     on = ps_plan["ps_on"] > 0
     Lx = torch.where(on[:, None, None, None], Lp, X)
     Rx = torch.where(on[:, None, None, None], Rp, X)
@@ -212,7 +240,10 @@ def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
     tensors on the device (qwire_scan_decoder_couple): the float output
     of every frame is kept, the AFTER_IMDCT coupling mixed in
     (``couple_mix``), and only then rounded."""
-    _require_static(is34, downsampled)
+    _require_full_rate(downsampled)
+    if is34 not in (0, 1):
+        raise ValueError(f"is34 must be 0 or 1, not {is34}: a stream whose "
+                         "band mode flips goes through qwire_scan_decode_flip")
     heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S, rate_idx,
                                               NB, MS, NS, SEC)
     T, L = rec_seq.shape[:2]
@@ -222,6 +253,81 @@ def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
         out, carry = heaac_frame_qwire(coeffs[t], rec_seq[t], heap, carry,
                                        is34, downsampled, rows_pair)
         pcm[t] = out if couple is not None else to_int16(out)
+    if couple is not None:
+        pcm = to_int16(couple_mix(pcm, *couple))
+    return carry, pcm
+
+
+def _convert_ps_flip(state: HeaacState, ph: dict, to34, to20):
+    """Per lane, the PS state at a band-mode flip (aacps.c:829-860 and
+    660-671): H row 0 through map_val_20_to_34 (to34 [B] bool) or
+    map_val_34_to_20 (to20), the IPD/OPD histories and the
+    decorrelation state (delay line, allpass rings, transient detector)
+    zeroed on both; the hybrid analysis in_buf carries over, like the
+    reference's ps->in_buf.  -> (state, ps_hist)."""
+    row0 = ph["H"][:, :, 0]                                 # [B,2,34,4]
+    row0 = _select(to34, ps.map_val_20_to_34(row0),
+                   _select(to20, ps.map_val_34_to_20(row0), row0))
+    flip = to34 | to20
+    H = ph["H"].clone()
+    H[:, :, 0] = row0
+    ph2 = dict(H=H,
+               ipd_hist=torch.where(flip[:, None], 0, ph["ipd_hist"]),
+               opd_hist=torch.where(flip[:, None], 0, ph["opd_hist"]))
+    zf = lambda a: _select(flip, torch.zeros_like(a), a)  # noqa: E731
+    state2 = state._replace(ps_delay=zf(state.ps_delay),
+                            ps_ap=zf(state.ps_ap),
+                            ps_trans=zf(state.ps_trans))
+    return state2, ph2
+
+
+def init_qwire_flip_carry(B: int, device):
+    """init_qwire_carry plus the band mode of each lane's last PS frame,
+    m34_prev [B] (0 at the start, like the reference's zeroed
+    ps->is34bands_old)."""
+    return init_qwire_carry(B, device) + (
+        torch.zeros((B,), dtype=torch.long, device=device),)
+
+
+def qwire_scan_decode_flip(heap, rec_seq, carry, downsampled: int, S: int,
+                           rate_idx: int = -1, NB: int = 0, NS: int = 52,
+                           SEC: int = 31, rows_pair: int = 0, couple=None):
+    """The band-mode flip scan (_flip_scan, qwire_scan_decoder_flip and,
+    with ``couple``, qwire_scan_decoder_flip_couple): like
+    qwire_scan_decode, but each lane's PS band mode is read per frame
+    from side bit 6 (expand_frame with is34 = -1), the PS state is
+    converted on a lane's first PS frame in a new mode
+    (``_convert_ps_flip``), the PS plan is expanded in both modes on the
+    converted history, and the frame graph runs both PS stages
+    (heaac_frame with is34 = 2), so K1 runs at napb 30 and at napb 50 in
+    every frame.  carry is init_qwire_flip_carry's (..., m34_prev [B]);
+    the M/S butterfly is not part of it (MS = 0).  -> (carry,
+    pcm int16 [T, L, 2, 2048])."""
+    _require_full_rate(downsampled)
+    heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S, rate_idx,
+                                              NB, 0, NS, SEC)
+    T, L = rec_seq.shape[:2]
+    dtype = torch.int16 if couple is None else torch.float32
+    pcm = torch.empty((T, L, 2, 2048), dtype=dtype, device=heap.device)
+    for t in range(T):
+        state, ph, qc, m34_prev = carry
+        core_meta, plan, pc, qc2 = qwire.expand_frame(heap, rec_seq[t], qc,
+                                                      -1, rows_pair)
+        m34 = pc.pop("m34")
+        active = pc["pc_i"][:, compact_plan.PI_ON] > 0
+        to34 = active & (m34 > 0) & (m34_prev == 0)
+        to20 = active & (m34 == 0) & (m34_prev > 0)
+        state2, ph2 = _convert_ps_flip(state, ph, to34, to20)
+        ps0, ph0 = compact_plan.expand_ps(pc, ph2, 0)
+        ps1, ph1 = compact_plan.expand_ps(pc, ph2, 1)
+        ps_plan = {k: _select(m34, ps1[k], ps0[k]) for k in ps0}
+        ph3 = {k: _select(m34, ph1[k], ph0[k]) for k in ph0}
+        ps_plan["m34"] = m34
+        core = dict(coeffs=coeffs[t], **core_meta)
+        out, state3 = heaac_frame(core, plan, ps_plan, state2, 2,
+                                  downsampled)
+        pcm[t] = out if couple is not None else to_int16(out)
+        carry = (state3, ph3, qc2, torch.where(active, m34, m34_prev))
     if couple is not None:
         pcm = to_int16(couple_mix(pcm, *couple))
     return carry, pcm

@@ -2,7 +2,8 @@
 
 Counterpart: ``heaac_tpu/codec/qwire.py`` device half — decode_coeffs_jax
 (byte-token spectrum decode), init_qcarry and expand_frame_jax with
-is34 in (0, 1), rows_pair 0 or 1 (1: the coupled-CPE raw SBR rows of
+is34 in (0, 1) or -1 (the band-mode flip scan: each lane's mode per
+frame from side bit 6, returned as ``pc["m34"]``), rows_pair 0 or 1 (1: the coupled-CPE raw SBR rows of
 stereo HE-AAC v1): per-frame side info + carried state -> core meta,
 the dense SBR plan (sbr_dequant / mapping / chirp by LUT gathers), and
 the PS codes (raw-bits row decode via ops/ps_huff + band remap).  The
@@ -35,10 +36,11 @@ from . import compact_plan as CP
 def _luts(device: torch.device) -> dict:
     out = {k: torch.from_numpy(v).to(device)
            for k, v in TB.qwire_luts().items()}
+    # [to34 * 3 + source kind, 34, 9]
     out["remap"] = torch.from_numpy(
-        TB.remap_tables(True).astype(np.int64)).to(device)      # [is34]
+        TB.remap_tables(True).astype(np.int64).reshape(6, 34, 9)).to(device)
     out["remap_p"] = torch.from_numpy(
-        TB.remap_tables(False).astype(np.int64)).to(device)
+        TB.remap_tables(False).astype(np.int64).reshape(6, 34, 9)).to(device)
     out["phi_re"] = torch.tensor([1, 0, -1, 0], dtype=torch.float32,
                                  device=device)
     out["phi_im"] = torch.tensor([0, 1, 0, -1], dtype=torch.float32,
@@ -160,10 +162,12 @@ def init_qcarry(B: int, device) -> dict:
 
 def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
     """rec [B, REC_W] int + heap + carry -> (core_meta, sbr dense plan,
-    ps codes {pc_i, pc_b}, new carry) for one frame (expand_frame_jax)."""
-    if is34 not in (0, 1):
-        raise NotImplementedError(
-            "only one PS band mode per frame (is34 0 or 1) is ported")
+    ps codes {pc_i, pc_b}, new carry) for one frame (expand_frame_jax).
+    With is34 = -1 each lane's PS band mode is this frame's side bit 6:
+    the parameters are remapped to it, and the ps codes also hold it as
+    ``m34`` [B] (0 where PS is off)."""
+    if is34 not in (-1, 0, 1):
+        raise ValueError(f"is34 must be -1, 0 or 1, not {is34}")
     dev = heap.device
     Lt = _luts(dev)
     f32 = torch.float32
@@ -550,10 +554,14 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
         (psb[:, PS_TOP] * ps_on)[:, None], bords,
         zc.expand(B, CP.PC_I_N - CP.PI_BORD - 6)], 1)
 
+    # the target resolution: one mode for the scan, or per lane per frame
+    m34 = ((flags >> 6) & 1) * ps_on if is34 == -1 else None
+    to34 = m34 if m34 is not None else is34
+
     def remap_dev(vals, kind, tt):
         """vals [B,5,34] native resolution -> mixing resolution:
         out[i] = tdiv(sum_j w_j*vals[s_j], den); den == 0 rows are 0."""
-        tab = tt[kind.clamp(0, 2)]                              # [B,34,9]
+        tab = tt[(to34 * 3 + kind.clamp(0, 2)).clamp(0, 5)]     # [B,34,9]
         s = tab[:, :, 0:4].reshape(B, 1, 136).expand(B, 5, 136)
         g = torch.gather(vals, 2, s).reshape(B, 5, 34, 4)
         num = (g * tab[:, None, :, 4:8]).sum(-1)
@@ -562,15 +570,15 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
                                         rounding_mode="floor")
         return torch.where(den > 0, q, 0)
 
-    iid = remap_dev(iid_n, pknd & 3, Lt["remap"][is34])
-    icc = remap_dev(icc_n, (pknd >> 2) & 3, Lt["remap"][is34])
+    iid = remap_dev(iid_n, pknd & 3, Lt["remap"])
+    icc = remap_dev(icc_n, (pknd >> 2) & 3, Lt["remap"])
     pkind = (nipd >= 11).long() + (nipd >= 17).long()
     j17 = torch.arange(17, device=dev)[None, None, :]
     pad = torch.zeros((B, 5, 17), dtype=torch.long, device=dev)
 
     def part_remap(rows):
         full = torch.cat([rows, pad], 2)
-        out = remap_dev(full, pkind, Lt["remap_p"][is34])[:, :, :17]
+        out = remap_dev(full, pkind, Lt["remap_p"])[:, :, :17]
         return torch.where(j17 < nipd[:, None, None], out, 0)
 
     ipd = part_remap(ipd_n)
@@ -582,6 +590,8 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
     pc_b = torch.where(upd[:, None], pc_b_new, carry["ps_pcb"])
     pc_b = torch.where((ps_on > 0)[:, None], pc_b, 0)
     pc = dict(pc_i=pc_i, pc_b=pc_b)
+    if m34 is not None:
+        pc["m34"] = m34
 
     ps_carry_new = {
         k: torch.where(upd.reshape((B,) + (1,) * (v.dim() - 1)), v,

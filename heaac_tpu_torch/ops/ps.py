@@ -1,7 +1,8 @@
 """Batched parametric stereo (20- and 34-band modes).
 
 Counterpart: ``heaac_tpu/ops/ps_jax.py`` — hybrid_analysis,
-decorrelate_and_mix, hybrid_synthesis (aacps.c:283-992).  The serial
+decorrelate_and_mix, hybrid_synthesis (aacps.c:283-992) and the band-mode
+flip conversions map_val_20_to_34 / map_val_34_to_20 (aacps.c:829-860).  The serial
 transient detector + allpass chain inside ``decorrelate_and_mix`` is
 kernel K1 (``ops/ps_decorrelate.py``) in both modes: 30 allpass bands
 at is34=0, 50 at is34=1.  (The JAX package runs the 50-band case through
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from .. import tables as TB
@@ -176,3 +178,49 @@ def hybrid_synthesis(buf, is34: int = 0):
     X = full.transpose(1, 2)                                  # [B,32,64,2]
     X = torch.nn.functional.pad(X, (0, 0, 0, 0, 0, 6))        # [B,38,64,2]
     return torch.stack([X[..., 0], X[..., 1]], 1)
+
+
+_HALF = float(np.float32(0.5))
+_THIRD = float(np.float32(0.33333333))
+_QUARTER = float(np.float32(0.25))
+
+
+@functools.cache
+def _idx_20_to_34(device: torch.device):
+    return torch.tensor([max(s, 0) for s in TB._IDX_20_TO_34],
+                        dtype=torch.long, device=device)
+
+
+def map_val_20_to_34(v):
+    """A carried per-band tensor at a 20 -> 34 PS band-mode flip
+    (aacps.c map_val_20_to_34): bands along axis -2, v [..., 34, k]."""
+    out = v.index_select(-2, _idx_20_to_34(v.device))
+    out[..., 1, :] = (v[..., 0, :] + v[..., 1, :]) * _HALF
+    out[..., 4, :] = (v[..., 2, :] + v[..., 3, :]) * _HALF
+    return out
+
+
+def map_val_34_to_20(v):
+    """34 -> 20 flip conversion (aacps.c map_val_34_to_20); bands 20..33
+    keep their values, as the reference's in-place arrays do.
+    v [..., 34, k]."""
+    p = lambda i: v[..., i, :]  # noqa: E731
+    rows = [
+        (2 * p(0) + p(1)) * _THIRD,
+        (p(1) + 2 * p(2)) * _THIRD,
+        (2 * p(3) + p(4)) * _THIRD,
+        (p(4) + 2 * p(5)) * _THIRD,
+        (p(6) + p(7)) * _HALF,
+        (p(8) + p(9)) * _HALF,
+        p(10), p(11),
+        (p(12) + p(13)) * _HALF,
+        (p(14) + p(15)) * _HALF,
+        p(16), p(17), p(18), p(19),
+        (p(20) + p(21)) * _HALF,
+        (p(22) + p(23)) * _HALF,
+        (p(24) + p(25)) * _HALF,
+        (p(26) + p(27)) * _HALF,
+        (p(28) + p(29) + p(30) + p(31)) * _QUARTER,
+        (p(32) + p(33)) * _HALF,
+    ]
+    return torch.cat([torch.stack(rows, -2), v[..., 20:, :]], -2)

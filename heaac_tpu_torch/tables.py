@@ -10,7 +10,8 @@ is derived here exactly as the JAX package derives it, and
 package's.
 
 Sections mirror their counterparts:
-  - AAC windows / dequant / codebooks   heaac_tpu/tables/aac_tables.py
+  - AAC windows / dequant / codebooks,  heaac_tpu/tables/aac_tables.py
+    band and TNS tables of the parser
   - IMDCT matrices                       heaac_tpu/ops/imdct.py
   - window bank                          heaac_tpu/ops/windowing.py
   - QMF prototypes and matrices          heaac_tpu/bitstream/sbr_syntax.py,
@@ -46,7 +47,12 @@ SAMPLE_RATES = np.array(
     [96000, 88200, 64000, 48000, 44100, 32000, 24000, 22050,
      16000, 12000, 11025, 8000, 7350, 0, 0, 0], np.int64)
 
+CHANNEL_COUNTS = np.array([0, 1, 2, 3, 4, 5, 6, 8], np.int64)
+
 ONLY_LONG, LONG_START, EIGHT_SHORT, LONG_STOP = range(4)
+
+# band types
+ZERO_BT, ESC_BT, NOISE_BT, INTENSITY_BT2, INTENSITY_BT = 0, 11, 13, 14, 15
 
 (TYPE_SCE, TYPE_CPE, TYPE_CCE, TYPE_LFE, TYPE_DSE, TYPE_PCE, TYPE_FIL,
  TYPE_END) = range(8)
@@ -124,14 +130,43 @@ def codebook_tuples(cb: int) -> np.ndarray:
     return vals
 
 
+def spectral_codes(cb: int) -> tuple:
+    r = raw()
+    return r[f"spec_codes_{cb}"], r[f"spec_bits_{cb}"]
+
+
+def scalefactor_codes() -> tuple:
+    r = raw()
+    return r["scalefactor_code"], r["scalefactor_bits"]
+
+
+def num_swb_1024(si: int) -> int:
+    return int(raw()["num_swb_1024"][si])
+
+
+def num_swb_128(si: int) -> int:
+    return int(raw()["num_swb_128"][si])
+
+
 def swb_offset_1024(si: int) -> np.ndarray:
-    n = int(raw()["num_swb_1024"][si])
-    return raw()["swb_offset_1024"][si][: n + 1]
+    return raw()["swb_offset_1024"][si][: num_swb_1024(si) + 1]
 
 
 def swb_offset_128(si: int) -> np.ndarray:
-    n = int(raw()["num_swb_128"][si])
-    return raw()["swb_offset_128"][si][: n + 1]
+    return raw()["swb_offset_128"][si][: num_swb_128(si) + 1]
+
+
+def tns_max_bands(si: int, eight_short: bool) -> int:
+    key = "tns_max_bands_128" if eight_short else "tns_max_bands_1024"
+    return int(raw()[key][si])
+
+
+def pred_sfb_max(si: int) -> int:
+    return int(raw()["pred_sfb_max"][si])
+
+
+def tns_tmp2_map(coef_compress: int, coef_res: int) -> np.ndarray:
+    return raw()[f"tns_tmp2_map_{coef_compress}_{coef_res + 3}"]
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +297,9 @@ def qmf_synthesis_consts():
 # ---------------------------------------------------------------------------
 # Parametric stereo (ps_tables.py, ps_jax._consts)
 # ---------------------------------------------------------------------------
+PS_MAX_NUM_ENV = 5
+PS_MAX_NR_IIDICC = 34
+PS_QMF_TIME_SLOTS = 32
 NR_PAR_BANDS = (20, 34)
 NR_BANDS = (71, 91)
 DECAY_CUTOFF = (10, 32)

@@ -31,9 +31,17 @@ def release_jax_memory():
     module (import this fixture into the module). The reference graphs
     these modules compile take a few GB, and a pytest-xdist worker keeps
     every executable it has compiled until it exits; without this the
-    whole suite's workers can outgrow the host's memory."""
+    whole suite's workers can outgrow the host's memory.  While the
+    module runs, torch computes on one intra-op thread: each worker
+    would otherwise start a thread per core for the port's small
+    tensors, and six workers doing so oversubscribe the host (on an
+    8-core CPU host at -n 6 the port's tests took 541 worker-s that way
+    and 287 with this fixture)."""
     _drop_compiled_jax()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     _drop_compiled_jax()
 
 
@@ -61,9 +69,11 @@ def golden_tool():
 
 
 # the bundled streams by kind: 20-band HE-AAC v2 (benchdata), 34-band
-# HE-AAC v2, stereo HE-AAC v1 and HE-AAC with a coupling channel applied
-# after the IMDCT or before TNS (tools/make_torch_streams.py), and the
-# AAC-LC cores; (file pattern, number of files)
+# HE-AAC v2, stereo HE-AAC v1, HE-AAC with a coupling channel applied
+# after the IMDCT or before TNS, HE-AAC v2 whose PS band mode flips
+# mid-stream, alone or with an AFTER_IMDCT coupling channel
+# (tools/make_torch_streams.py), and the AAC-LC cores; (file pattern,
+# number of files)
 STREAM_FILES = {
     "he20": ("benchdata/heaac_bench_stream_{}.aac", 8),
     "he34": ("tests/data/heaac_v2_34band_{}.aac", 8),
@@ -71,6 +81,8 @@ STREAM_FILES = {
     "cce_after": ("tests/data/heaac_cce_after_{}.aac", 2),
     "cce_before": ("tests/data/heaac_cce_before_{}.aac", 2),
     "lc": ("benchdata/lc_core_24k_{}.aac", 8),
+    "flip": ("tests/data/heaac_v2_flip_{}.aac", 8),
+    "flip_cce": ("tests/data/heaac_flip_cce_{}.aac", 1),
 }
 
 

@@ -141,3 +141,42 @@ def test_qwire_luts_and_layout():
     jpayload, jrec = jq.silence_lane()
     assert payload == jpayload
     same(rec, jrec)
+
+
+def test_parser_tables():
+    """The tables the port's copy of the host parser and the planner's
+    writers read (heaac_tpu_torch/bitstream, codec/qwire_host.py)."""
+    from heaac_tpu.bitstream import ps_syntax as jps
+    from heaac_tpu.ops import sbr_np
+    from heaac_tpu_torch.bitstream import ps_syntax, sbr_syntax as psyn
+    from heaac_tpu_torch.codec import qwire_host as QH
+    same(TB.CHANNEL_COUNTS, jT.CHANNEL_COUNTS)
+    for name in ("ONLY_LONG", "LONG_START", "EIGHT_SHORT", "LONG_STOP",
+                 "ZERO_BT", "ESC_BT", "NOISE_BT", "INTENSITY_BT2",
+                 "INTENSITY_BT", "TYPE_DSE", "TYPE_PCE", "TYPE_FIL",
+                 "TYPE_END"):
+        assert getattr(TB, name) == getattr(jT, name), name
+    for cb in range(1, 12):
+        for a, b in zip(TB.spectral_codes(cb), jT.spectral_codes(cb)):
+            same(a, b)
+    for a, b in zip(TB.scalefactor_codes(), jT.scalefactor_codes()):
+        same(a, b)
+    for si in range(12):
+        assert TB.num_swb_1024(si) == jT.num_swb_1024(si)
+        assert TB.num_swb_128(si) == jT.num_swb_128(si)
+        assert TB.pred_sfb_max(si) == jT.pred_sfb_max(si)
+        for short in (False, True):
+            assert TB.tns_max_bands(si, short) == jT.tns_max_bands(si, short)
+    for cc in (0, 1):
+        for res in (0, 1):
+            same(TB.tns_tmp2_map(cc, res), jT.tns_tmp2_map(cc, res))
+    for name in ("PS_MAX_NUM_ENV", "PS_MAX_NR_IIDICC", "PS_QMF_TIME_SLOTS"):
+        assert getattr(TB, name) == getattr(jP, name), name
+    assert (ps_syntax.NUM_ENV_TAB, ps_syntax.NR_IIDICC_PAR_TAB,
+            ps_syntax.NR_IIDOPD_PAR_TAB) == (
+        jps.NUM_ENV_TAB, jps.NR_IIDICC_PAR_TAB, jps.NR_IIDOPD_PAR_TAB)
+    assert psyn._SBR_VLC_NAMES == sbr_syntax._SBR_VLC_NAMES
+    same(QH.BW_TAB, sbr_np.BW_TAB)
+    assert QH.PS_KIND_OF == jq.PS_KIND_OF and QH.SEC_MAX == jsp.SEC_MAX
+    for name in ("W3_MS_MASK", "W3_MS_LEFT", "W3_MS_RIGHT", "W3_SHORT"):
+        assert getattr(QH, name) == getattr(jsp, name), name

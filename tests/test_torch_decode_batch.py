@@ -7,8 +7,6 @@ interleaved) against the committed JAX golden
 not run here), within 2 int16 LSB, each output in its input's place;
 streams the port cannot take raise NotImplementedError naming them; the
 ADTS splitter equals the JAX package's."""
-import functools
-
 import numpy as np
 import pytest
 import torch
@@ -16,7 +14,8 @@ import torch
 from heaac_tpu.bitstream.adts import split_adts_stream as jax_split
 from heaac_tpu_torch import decode_batch
 from heaac_tpu_torch.host import split_adts_stream
-from test_torch_common import golden_tool, streams_of
+from test_torch_common import (  # noqa: F401 (autouse fixture)
+    golden_tool, release_jax_memory, streams_of)
 
 T = 8          # frames of each stream the test decodes
 TOL_LSB = 2
@@ -50,26 +49,19 @@ def test_decode_batch_cpu_matches_golden():
         assert np.abs(got - want).max() <= TOL_LSB, name
 
 
-def _flip_stream(frames: int, flip_at: int) -> bytes:
-    """An HE-AAC v2 stream whose PS switches from 20 to 34 bands at frame
-    ``flip_at`` (the JAX package decodes it with its band-mode flip
-    scan, which the port does not have)."""
-    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
-                                            splice_sbr_into_lc)
-    core = _head(streams_of("lc", 1)[0], frames)
-    ps = PsStreamWriter(seed=12, switch_at={flip_at: (2, 2)})
-    # leave room in the FIL element for the SBR data beside the 34-band
-    # parameters, as tools/make_torch_streams.py does
-    ps.ps_payload = functools.partial(PsStreamWriter.ps_payload, ps,
-                                      max_bytes=160)
-    w = SbrStreamWriter(core_rate=24000, is_cpe=False, env_hi_shift=-12,
-                        seed=11, ps_writer=ps)
-    return splice_sbr_into_lc(core, w)
+def _lc_cce_stream(frames: int) -> bytes:
+    """An AAC-LC stream in a program-config layout with a coupling channel
+    element each frame: the port's LC path takes channel configurations
+    1-7 only (the JAX package parses this one with its LC Python
+    planner, which is not ported)."""
+    from heaac_tpu.io.heaac_testgen import splice_cce_into_lc
+    return splice_cce_into_lc(_head(streams_of("lc", 1)[0], frames),
+                              coupling_point="after")
 
 
 def test_decode_batch_names_the_stream_it_cannot_take():
     streams = [b"no sync word here", _head(streams_of("he20", 1)[0], 4),
-               _flip_stream(4, 2)]
+               _lc_cce_stream(4)]
     with pytest.raises(NotImplementedError, match=r"^stream 2:") as ei:
         decode_batch(streams, device="cpu")
     assert ei.value.__cause__ is not None

@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA card (marker ``gpu``; they skip without
 one): kernel K1 against its plain version at the main path's shapes, a
 short main-path decode on the card against the port's CPU decode, the
-same for stereo HE-AAC v1 (device M/S, coupled SBR rows), and
-decode_batch on the card against its CPU run for a stream of each kind.
+same for stereo HE-AAC v1 (device M/S, coupled SBR rows),
+decode_batch on the card against its CPU run for a stream of each kind,
+and a stream whose PS band mode flips through the flip scan.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -14,7 +15,8 @@ import pytest
 import torch
 
 from heaac_tpu_torch import decode_batch
-from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
+                                         decode_qwire_flip_stream)
 from heaac_tpu_torch.host import split_adts_stream
 from heaac_tpu_torch.ops import ps_decorrelate as K
 from test_torch_common import bench_streams, streams_of
@@ -90,3 +92,18 @@ def test_decode_batch_on_card_matches_cpu(cuda):
     for g, c in zip(gpu[:3], cpu[:3]):
         assert g.shape == c.shape and g.dtype == c.dtype == torch.int16
         assert int((g.int() - c.int()).abs().max()) <= 2
+
+
+def test_flip_stream_on_card_matches_cpu(cuda):
+    """Flip stream 2 (20 -> 34 -> 20 bands at frames 5 and 11), 12
+    frames through decode_qwire_flip_stream on the card: K1 at napb 30
+    and at napb 50 in every frame, within 2 LSB of the CPU."""
+    data = b"".join(split_adts_stream(streams_of("flip", 3)[2])[:12])
+    before = dict(K.launches)
+    gpu = decode_qwire_flip_stream(data, device=cuda)
+    assert {napb: K.launches[napb] - before[napb] for napb in before} == {
+        30: 12, 50: 12}
+    cpu = decode_qwire_flip_stream(data, device="cpu")
+    assert gpu.shape == cpu.shape == (12 * 2048, 2)
+    assert int(cpu.abs().max()) > 1000
+    assert int((gpu.int() - cpu.int()).abs().max()) <= 2

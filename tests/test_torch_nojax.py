@@ -2,7 +2,11 @@
 importing ``jax`` or ``heaac_tpu`` fails imports heaac_tpu_torch,
 decodes a benchdata stream on the CPU, and runs decode_batch on a
 34-band HE-AAC v2, an AAC-LC, a stereo HE-AAC v1 and an HE-AAC stream
-with a coupling channel applied after the IMDCT (4 frames each)."""
+with a coupling channel applied after the IMDCT (4 frames each), then on
+two streams whose PS band mode flips (the Python planner and the flip
+scan): flip stream 3 (4 frames, a flip at frame 2) and the flip +
+coupling-channel stream (8 frames, a flip at frame 6), against the JAX
+golden (tests/data/flip_golden_jax.npz)."""
 import os
 import subprocess
 import sys
@@ -32,6 +36,15 @@ heads = [b"".join(split_adts_stream(open(REPO + f, "rb").read())[:4])
 outs = decode_batch(heads, device="cpu")
 print("BATCH", [tuple(o.shape) for o in outs],
       [int(o.abs().max()) > 0 for o in outs])
+flips = [b"".join(split_adts_stream(open(REPO + f, "rb").read())[:k])
+         for f, k in (("/tests/data/heaac_v2_flip_3.aac", 4),
+                      ("/tests/data/heaac_flip_cce_0.aac", 8))]
+fouts = decode_batch(flips, device="cpu")
+fgold = np.load(REPO + "/tests/data/flip_golden_jax.npz")
+fdiff = [int(np.abs(o.numpy().astype(np.int32)
+                    - fgold["pcm_" + name][:len(o)]).max())
+         for o, name in zip(fouts, ("flip_3", "flip_cce_0"))]
+print("FLIP", [tuple(o.shape) for o in fouts], max(fdiff) <= 2)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -39,8 +52,10 @@ print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
 
 
 def test_port_decodes_without_jax():
+    # one torch thread, as in the parity modules (test_torch_common)
     r = subprocess.run([sys.executable, "-c", f"REPO = {REPO!r}\n" + CODE],
-                       capture_output=True, text=True, cwd=REPO, timeout=300)
+                       capture_output=True, text=True, cwd=REPO, timeout=300,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr[-3000:]
     line = [x for x in r.stdout.splitlines() if x.startswith("RESULT")][0]
     assert line.startswith("RESULT (4, 1, 2, 2048)"), line
@@ -50,3 +65,5 @@ def test_port_decodes_without_jax():
     batch = [x for x in r.stdout.splitlines() if x.startswith("BATCH")][0]
     assert batch == ("BATCH [(8192, 2), (4096, 1), (8192, 2), (8192, 2)] "
                      "[True, True, True, True]"), batch
+    flip = [x for x in r.stdout.splitlines() if x.startswith("FLIP")][0]
+    assert flip == "FLIP [(8192, 2), (16384, 2)] True", flip

@@ -5,7 +5,9 @@ side-info expansion over real frames — every integer output and the
 whole carry exactly, the float plan tensors within 1e-6 of each element
 (XLA's CPU division / sqrt may differ from IEEE in the last bit).
 The expansion runs on 20-band streams and on the 34-band streams of
-tools/make_torch_streams.py (is34=1: the band remap tables)."""
+tools/make_torch_streams.py (is34=1: the band remap tables), against
+expand_frame_jax's outputs stored by tools/make_torch_golden.py
+(tests/data/qwire_expand_golden_jax.npz; JAX does not run for it here)."""
 import numpy as np
 import pytest
 
@@ -14,7 +16,8 @@ import jax.numpy as jnp
 from heaac_tpu.codec import qwire as jq
 from heaac_tpu_torch.codec import qwire
 from test_torch_common import (  # noqa: F401 (autouse fixture)
-    assert_exact, n, port_parse, port_trace, release_jax_memory, t)
+    assert_exact, golden_tool, n, port_parse, port_trace, release_jax_memory,
+    t)
 
 
 def _token_lanes(seed: int, B: int = 8):
@@ -73,24 +76,26 @@ def test_decode_coeffs_benchdata_heap_bitwise():
     assert_exact(got.view(np.int32), ref.view(np.int32), "coeffs")
 
 
-def check_expand_frame(kind: str, T: int = 6):
-    p = port_parse(4, T, kind)
-    heap = p["heap"].astype(np.int32)
-    jheap = jnp.asarray(heap)
-    pheap = t(heap)
-    jc = jq.init_qcarry(4)
-    pc = qwire.init_qcarry(4, "cpu")
+def check_expand_frame(kind: str):
+    tool = golden_tool()
+    T = tool.QWIRE_FRAMES
+    p = port_parse(tool.QWIRE_STREAMS, T, kind)
+    with np.load(tool.QWIRE_GOLDEN) as z:
+        gold = {k[len(kind) + 1:]: z[k] for k in z.files
+                if k.startswith(kind + "/")}
+    # the JAX outputs came from the same native parse of the same frames
+    assert_exact(p["heap"], gold["heap"], "heap")
+    assert_exact(p["recs"], gold["recs"], "recs")
+    pheap = t(p["heap"].astype(np.int32))
+    pc = qwire.init_qcarry(tool.QWIRE_STREAMS, "cpu")
     for f in range(T):
-        rec = p["recs"][f]
-        # eager: its op-by-op compiles take less time than one jit of the
-        # whole function, and the 34-band case reuses most of them
-        jout = jq.expand_frame_jax(jheap, jnp.asarray(rec), jc, p["is34"], 0)
-        pout = qwire.expand_frame(pheap, t(rec), pc, p["is34"])
+        jout = tool.unflatten_tree(gold, f"frame_{f}")
+        pout = qwire.expand_frame(pheap, t(p["recs"][f]), pc, p["is34"])
         for name, a, b in zip(("core_meta", "plan", "pc", "carry"), pout,
                               jout):
             assert_exact(a, b, f"frame {f} {name}",
                          float_rtol=1e-6 if name == "plan" else 0.0)
-        jc, pc = jout[3], pout[3]
+        pc = pout[3]
     assert n(pc["ps"]["ps_ok"]).all()
     return p
 

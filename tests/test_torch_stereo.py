@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 
 from heaac_tpu_torch.codec import compact_plan, heaac_graph, qwire
-from test_torch_common import (REPO, assert_exact, assert_peak_close,
-                               golden_tool, n, port_parse, streams_of, t)
+from test_torch_common import (  # noqa: F401 (autouse fixture)
+    REPO, assert_exact, assert_peak_close, golden_tool, n, port_parse,
+    release_jax_memory, streams_of, t)
 
 
 @functools.cache

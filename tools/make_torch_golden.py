@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Write the JAX reference's PCM for the PyTorch port's checks.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir [name ...]]
 
-Writes three files into tests/data (or out_dir), all from the JAX
-package on the CPU:
+Writes five files into tests/data (or out_dir), all from the JAX
+package on the CPU; with names (scan, batch, stereo, qwire, flip) only
+those:
 
   heaac_v2_golden_jax.npz      benchdata/heaac_bench_stream_{0,1}.aac
       parsed by its QwirePipelinedDecoder and decoded by its qwire scan,
@@ -30,13 +31,36 @@ package on the CPU:
       (``_qwire_decode_all_coeffs`` with MS=1, ``prologue_stereo``) over
       stereo streams 0-1's first 4 frames: ``ms_heap``, ``ms_recs``,
       ``ms_coeffs`` [4, 4, 1024].
+  qwire_expand_golden_jax.npz  streams 0-3 of the 20-band (benchdata)
+      and of the 34-band kind, first QWIRE_FRAMES frames, parsed by its
+      QwirePipelinedDecoder (``{kind}/heap``, ``{kind}/recs``) and
+      expanded frame by frame by ``qwire.expand_frame_jax`` (is34 0 or
+      1) from fresh carries, eagerly (``expand_streams``): each frame's
+      outputs (core meta, SBR plan, PS codes) and the carry after it
+      (``{kind}/frame_{f}/...``).
+  flip_golden_jax.npz  the band-mode flip streams
+      (tests/data/heaac_v2_flip_{0..7}.aac, heaac_flip_cce_0.aac; names
+      ``flip_{i}``, ``flip_cce_0``), first FRAMES frames: its
+      ``decode_qwire_flip_stream`` PCM (``pcm_{name}``, int16 [n, 2]) and
+      the planner's band-mode trail (``trail_{name}``); for flip streams
+      0 and 1 the planner's heap and records (``expand_{i}/heap``,
+      ``/recs``) and ``expand_frame_jax(is34=-1)``'s outputs at the
+      first flip frame and the frame after (``expand_{i}/frame_{f}``),
+      the qwire carry before them and after each
+      (``expand_{i}/carry_{f}``: after frame f); and the flip scan's
+      carry after the first FLIP_CARRY_FRAMES frames of flip stream 1,
+      whose band mode flips at frame 9 (``scan_carry/...``, with the
+      ``scan_heap``, ``scan_recs`` and ``scan_static`` it ran on).
 
-The 34-band, stereo and CCE streams come from tools/make_torch_streams.py.
+The 34-band, stereo, CCE and flip streams come from
+tools/make_torch_streams.py.
 chip_smoke.py holds the port's GPU output to the first two files;
 tests/test_torch_golden.py regenerates the first and checks it,
 tests/test_torch_decode_batch.py holds the port's CPU decode_batch to
 the second and tests/test_torch_stereo.py its CPU expand_frame to the
-third.
+third; tests/test_torch_qwire.py holds its expand_frame to the fourth;
+tests/test_torch_flip.py and chip_smoke.py phase 7 hold the flip path
+to the fifth.
 """
 import os
 import sys
@@ -53,6 +77,16 @@ STREAMS = (0, 1)
 FRAMES = 16
 HALF = FRAMES // 2
 MS_STREAMS, MS_FRAMES = 2, 4      # the M/S prologue golden
+QWIRE_GOLDEN = os.path.join(DATA, "qwire_expand_golden_jax.npz")
+QWIRE_KINDS = {"he20": "benchdata/heaac_bench_stream_{}.aac",
+               "he34": "tests/data/heaac_v2_34band_{}.aac"}
+QWIRE_STREAMS, QWIRE_FRAMES = 4, 6
+FLIP_GOLDEN = os.path.join(DATA, "flip_golden_jax.npz")
+FLIP_FILES = tuple((f"flip_{i}", f"tests/data/heaac_v2_flip_{i}.aac")
+                   for i in range(8)) + (
+    ("flip_cce_0", "tests/data/heaac_flip_cce_0.aac"),)
+FLIP_EXPAND = {0: 6, 1: 9}        # flip stream -> its first flip frame
+FLIP_CARRY_STREAM, FLIP_CARRY_FRAMES = 1, 10
 # the mixed decode_batch list: (name, file relative to the repo); None is
 # the buffer with no ADTS sync word
 BATCH_LIST = (
@@ -120,8 +154,10 @@ def flatten_tree(tree, prefix: str) -> dict:
 
 
 def unflatten_tree(z, prefix: str):
-    """flatten_tree's inverse for one prefix of an npz; a carry comes back
-    as the (state, ps_hist, qwire carry) tuple."""
+    """flatten_tree's inverse for one prefix of an npz (or a dict of its
+    arrays): a tree flattened from a tuple (a carry: state, ps_hist,
+    qwire carry) comes back as a tuple of nested dicts, one flattened
+    from a dict as that dict."""
     root: dict = {}
     for key in z.files if hasattr(z, "files") else z:
         if key.startswith(prefix + "/"):
@@ -130,7 +166,9 @@ def unflatten_tree(z, prefix: str):
             for p in path:
                 d = d.setdefault(p, {})
             d[leaf] = z[key]
-    return tuple(root[str(i)] for i in range(len(root)))
+    if all(str(i) in root for i in range(len(root))):
+        return tuple(root[str(i)] for i in range(len(root)))
+    return root
 
 
 def golden_scan() -> dict:
@@ -237,6 +275,130 @@ def write_stereo_golden(out: str) -> None:
           f"the carries after them; the M/S prologue of {MS_FRAMES} frames")
 
 
+def expand_streams() -> dict:
+    """The JAX package's expand_frame_jax over the first QWIRE_FRAMES
+    frames of streams 0..QWIRE_STREAMS-1 of each QWIRE_KINDS kind, as its
+    QwirePipelinedDecoder parses them, eagerly, from fresh carries ->
+    {kind: dict(heap, recs, frame_{f}: (core_meta, plan, pc, carry))}."""
+    sys.path.insert(0, REPO)
+    import jax.numpy as jnp
+    from heaac_tpu.codec import qwire
+    from heaac_tpu.codec.batch import QwirePipelinedDecoder
+    out = {}
+    for kind, pat in QWIRE_KINDS.items():
+        streams = [open(os.path.join(REPO, pat.format(i)), "rb").read()
+                   for i in range(QWIRE_STREAMS)]
+        dec = QwirePipelinedDecoder(streams, group_streams=QWIRE_STREAMS,
+                                    max_frames=QWIRE_FRAMES)
+        heap, cur, recs = dec._parse_group(streams, 0, QWIRE_FRAMES)
+        heap = heap[:cur + 4096].copy()
+        recs = recs[:QWIRE_FRAMES].copy()
+        jheap = jnp.asarray(heap.astype(np.int32))
+        qc = qwire.init_qcarry(dec.L)
+        g = dict(heap=heap, recs=recs)
+        for f in range(QWIRE_FRAMES):
+            res = qwire.expand_frame_jax(jheap, jnp.asarray(recs[f]), qc,
+                                         dec.is34, 0)
+            g[f"frame_{f}"] = _numpy_tree(res)
+            qc = res[3]
+        out[kind] = g
+    return out
+
+
+def write_qwire_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(QWIRE_GOLDEN))
+    z = {}
+    for kind, g in expand_streams().items():
+        z.update(flatten_tree(g, kind))
+    np.savez_compressed(path, **z)
+    print(f"wrote {path}: expand_frame_jax over {QWIRE_FRAMES} frames of "
+          f"{QWIRE_STREAMS} streams of {', '.join(QWIRE_KINDS)}")
+
+
+def flip_streams(repo: str = REPO) -> list:
+    """The flip streams as [(name, bytes)]."""
+    return [(name, open(os.path.join(repo, rel), "rb").read())
+            for name, rel in FLIP_FILES]
+
+
+def jax_flip_pack(data: bytes, frames: int):
+    """The JAX package's planner parse of a flip stream packed as its
+    decode_qwire_flip_stream packs it -> (heap uint8, recs [T, nl, 4],
+    static args of the flip scan (ds, S, rate_idx, NB, NS, SEC, RP))."""
+    from heaac_tpu.bitstream.adts import parse_adts_header
+    from heaac_tpu.bitstream.reader import BitReader
+    from heaac_tpu.codec import qwire
+    from heaac_tpu.codec.batch import parse_stream_qwire
+    frames_q, _, nl, _, ds = parse_stream_qwire(data, max_frames=frames,
+                                                is34_out=[])
+    heap = bytearray()
+    recs = np.zeros((len(frames_q), nl, qwire.REC_W), np.int32)
+    for t, fr in enumerate(frames_q):
+        for ln, (payload, rec) in enumerate(fr):
+            recs[t, ln] = rec
+            recs[t, ln, qwire.R_TOKOFF] = len(heap)
+            heap += payload
+    heap += bytes(-len(heap) % 4)
+    heap = np.frombuffer(bytes(heap), np.uint8)
+    S = -(-max(64, int((recs[..., qwire.R_W1] & 0xFFFF).max())) // 64) * 64
+    sa = qwire.spec_static_args(recs)
+    rate_idx = parse_adts_header(BitReader(data[:7])).sampling_index
+    return heap, recs, (ds, S, rate_idx, sa["NB"], sa["NS"], sa["SEC"],
+                        qwire.rows_pair_static(heap, recs))
+
+
+def flip_golden() -> dict:
+    sys.path.insert(0, REPO)
+    import jax.numpy as jnp
+    from heaac_tpu.codec import heaac_graph as jg
+    from heaac_tpu.codec import qwire
+    from heaac_tpu.codec.batch import (decode_qwire_flip_stream,
+                                       parse_stream_qwire)
+    named = dict(flip_streams())
+    z = {}
+    for name, data in named.items():
+        trail = []
+        parse_stream_qwire(data, max_frames=FRAMES, is34_out=trail)
+        z[f"trail_{name}"] = np.array(trail, np.int32)
+        z[f"pcm_{name}"] = np.asarray(
+            decode_qwire_flip_stream(data, max_frames=FRAMES), np.int16)
+        print(f"flip golden {name}: trail {trail}", flush=True)
+    for i, f in FLIP_EXPAND.items():
+        heap, recs, _ = jax_flip_pack(named[f"flip_{i}"], f + 2)
+        jheap = jnp.asarray(heap.astype(np.int32))
+        qc = qwire.init_qcarry(recs.shape[1])
+        g = dict(heap=heap, recs=recs)
+        for k in range(f + 2):
+            if k == f:
+                g[f"carry_{k - 1}"] = _numpy_tree(qc)
+            res = qwire.expand_frame_jax(jheap, jnp.asarray(recs[k]), qc,
+                                         -1, 0)
+            qc = res[3]
+            if k >= f:
+                g[f"frame_{k}"] = _numpy_tree(res[:3])
+                g[f"carry_{k}"] = _numpy_tree(qc)
+        z.update(flatten_tree(g, f"expand_{i}"))
+    heap, recs, static = jax_flip_pack(named[f"flip_{FLIP_CARRY_STREAM}"],
+                                       FRAMES)
+    run = jg.qwire_scan_decoder_flip(*static)
+    carry, _ = run(jnp.asarray(heap.view(np.float32)),
+                   jnp.asarray(recs[:FLIP_CARRY_FRAMES].view(np.float32)),
+                   jg.init_qwire_flip_carry(recs.shape[1]))
+    z.update(flatten_tree(_numpy_tree(carry), "scan_carry"))
+    z.update(scan_heap=heap, scan_recs=recs, scan_static=np.array(static))
+    return z
+
+
+def write_flip_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(FLIP_GOLDEN))
+    np.savez_compressed(path, **flip_golden())
+    print(f"wrote {path}: decode_qwire_flip_stream PCM of {len(FLIP_FILES)} "
+          f"flip streams over {FRAMES} frames, expand_frame_jax(is34=-1) "
+          "around the first flips of streams 0 and 1, and the flip scan's "
+          f"carry after {FLIP_CARRY_FRAMES} frames of stream "
+          f"{FLIP_CARRY_STREAM}")
+
+
 def batch_golden() -> dict:
     sys.path.insert(0, REPO)
     from heaac_tpu.codec.batch import decode_batch
@@ -250,9 +412,7 @@ def batch_golden() -> dict:
     return z
 
 
-def main() -> None:
-    out = sys.argv[1] if len(sys.argv) > 1 else DATA
-    os.makedirs(out, exist_ok=True)
+def write_scan_golden(out: str) -> None:
     path = os.path.join(out, os.path.basename(GOLDEN))
     g = golden_scan()
     np.savez_compressed(path, pcm=g["pcm"],
@@ -260,13 +420,27 @@ def main() -> None:
                         **flatten_tree(g["carry_end"], "carry_end"))
     print(f"wrote {path}: pcm {g['pcm'].shape} {g['pcm'].dtype} and the "
           "JAX carries after frames 8 and 16")
+
+
+def write_batch_golden(out: str) -> None:
     path = os.path.join(out, os.path.basename(BATCH_GOLDEN))
     z = batch_golden()
     np.savez_compressed(path, **z)
     print(f"wrote {path}: " + ", ".join(
         f"{name} {z[f'pcm_{k}'].shape} of {int(z[f'n_{k}'])}"
         for k, name in enumerate(z["names"])))
-    write_stereo_golden(out)
+
+
+WRITERS = {"scan": write_scan_golden, "batch": write_batch_golden,
+           "stereo": write_stereo_golden, "qwire": write_qwire_golden,
+           "flip": write_flip_golden}
+
+
+def main() -> None:
+    out = sys.argv[1] if len(sys.argv) > 1 else DATA
+    os.makedirs(out, exist_ok=True)
+    for name in sys.argv[2:] or WRITERS:
+        WRITERS[name](out)
 
 
 if __name__ == "__main__":

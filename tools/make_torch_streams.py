@@ -39,6 +39,27 @@ seeded 514, not 513: with 513 one band of frame 2 asks a gain of
 (1e-7 of its peak) up to 2.7 LSB between the port and JAX (JAX jitted
 against eager: 0 LSB); seeds 514-517 give 1 LSB over all 50 frames.
 
+heaac_v2_flip_{i}.aac, i in 0..7 (48 kHz stereo out, 50 frames): HE-AAC
+v2 whose PS band mode flips mid-stream, SBR + PS spliced into core
+benchdata/lc_core_24k_{i}.aac with the PS writer's mode switches
+(``PsStreamWriter(switch_at=...)``).  Schedules (``FLIP_SCHEDULES``):
+20 -> 34 bands at frame 6 (streams 0 and 4); 34 -> 20 at frame 9 (1 and
+5); 20 -> 34 -> 20 at frames 5 and 11 (2 and 6); 34 -> 20 -> 34 at
+frames 2 and 11 (3 and 7: frame 2 of cores 0-3 is EIGHT_SHORT, so stream
+3 flips on a short-window frame).  20 bands is iid_mode 1 / icc_mode 1,
+34 bands iid_mode 2 / icc_mode 2; streams 4-7 use fine IID quantisation
+(iid_mode 4 or 5) with IPD/OPD, so a flip also resets the phase
+histories.  The native parser refuses these streams (the band mode
+changes); checked with the port's Python planner: the per-frame band
+mode trail flips exactly at the scheduled frames.
+
+heaac_flip_cce_0.aac (50 frames): a flip plus an AFTER_IMDCT coupling
+channel: core benchdata/lc_core_24k_2.aac in a PCE layout with a CCE
+each frame (applied after the IMDCT), SBR and PS flipping 20 -> 34 at
+frame 6 (tests/test_ps_flip.py's flip + coupling recipe on a bundled
+core).  Checked with the planner: the trail, 2 lanes, 1 output lane and
+coupling edges.
+
 Every SBR writer here signals no inverse filtering (invf_mode 0).  The
 cores are tonal, so a whitened patch (invf_mode 2 or 3) is the small
 residual of a nearly exact two-tap prediction, which the envelope gains
@@ -69,6 +90,14 @@ STEREO_FRAMES = 50     # ADTS frames of every stereo stream
 CORE_RATE = 24000
 CCE_POINTS = ("after", "before")
 CCE_SBR_SEEDS = (500, 514)    # per core j (see above)
+# PS band modes as (iid_mode, icc_mode): coarse (streams 0-3) and fine
+# IID with IPD/OPD (4-7)
+PS_MODES = {(False, 20): (1, 1), (False, 34): (2, 2),
+            (True, 20): (4, 1), (True, 34): (5, 2)}
+# stream i % 4 -> (first band mode, {frame: band mode from that frame})
+FLIP_SCHEDULES = {0: (20, {6: 34}), 1: (34, {9: 20}),
+                  2: (20, {5: 34, 11: 20}), 3: (34, {2: 20, 11: 34})}
+FLIP_CCE_CORE = 2
 
 
 def make_stream(i: int, invf_modes=INVF_MODES) -> bytes:
@@ -94,6 +123,88 @@ def make_stream(i: int, invf_modes=INVF_MODES) -> bytes:
         except AssertionError:
             continue
     raise RuntimeError(f"stream {i}: could not fit the FIL payload")
+
+
+def flip_trail(i: int, frames: int) -> list:
+    """Flip stream i's expected per-frame PS band mode (1 = 34 bands)."""
+    first, switches = FLIP_SCHEDULES[i % 4]
+    mode, out = first, []
+    for f in range(frames):
+        mode = switches.get(f, mode)
+        out.append(int(mode == 34))
+    return out
+
+
+def make_flip_stream(i: int) -> bytes:
+    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
+                                            splice_sbr_into_lc)
+    core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{i}.aac"),
+                "rb").read()
+    fine = i >= 4
+    first, switches = FLIP_SCHEDULES[i % 4]
+    iid0, icc0 = PS_MODES[fine, first]
+    for tries in range(8):
+        try:
+            ps = PsStreamWriter(
+                seed=3000 + 5 * i, iid_mode=iid0, icc_mode=icc0,
+                enable_ipdopd=fine,
+                switch_at={f: PS_MODES[fine, m] for f, m in switches.items()})
+            ps.ps_payload = functools.partial(
+                PsStreamWriter.ps_payload, ps, max_bytes=PS_MAX_BYTES)
+            w = SbrStreamWriter(
+                core_rate=CORE_RATE, is_cpe=False, env_hi_shift=-12,
+                seed=1500 + 7 * i + 1000003 * tries,
+                invf_modes=INVF_MODES, ps_writer=ps)
+            return splice_sbr_into_lc(core, w)
+        except AssertionError:
+            continue
+    raise RuntimeError(f"flip stream {i}: could not fit the FIL payload")
+
+
+def make_flip_cce_stream() -> bytes:
+    from heaac_tpu.bitstream.aac_syntax import T as TT
+    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
+                                            splice_cce_into_lc,
+                                            splice_sbr_multi)
+    core = open(os.path.join(REPO, "benchdata",
+                             f"lc_core_24k_{FLIP_CCE_CORE}.aac"), "rb").read()
+    cce = splice_cce_into_lc(core, coupling_point="after")
+    psw = PsStreamWriter(seed=5, iid_mode=1, icc_mode=1,
+                         switch_at={6: (1, 2)})
+    w = SbrStreamWriter(core_rate=CORE_RATE, is_cpe=False, env_hi_shift=-12,
+                        seed=11, invf_modes=INVF_MODES, grid_classes=(0,),
+                        fix_num_env=1, ps_writer=psw)
+    return splice_sbr_multi(cce, {(TT.TYPE_SCE, 0): w})
+
+
+def planner_parse(data: bytes) -> dict:
+    """The port's Python planner over one stream: frames, lanes, output
+    lanes, coupling series and the per-frame PS band-mode trail."""
+    from heaac_tpu_torch.codec.planner import parse_stream_qwire
+    trail, info = [], {}
+    frames, _, nl, _, _ = parse_stream_qwire(data, is34_out=trail,
+                                             info_out=info)
+    return dict(frames=len(frames), nl=nl, out_nl=info["out_nl"],
+                couple=info["couple"], trail=trail)
+
+
+def check_flip(name: str, data: bytes, want_trail: list, nl: int,
+               couple: bool) -> str:
+    from heaac_tpu_torch import native
+    from heaac_tpu_torch.host import parse_adts_header
+    p = planner_parse(data)
+    bad = []
+    if p["trail"] != want_trail[:p["frames"]] or p["frames"] != 50:
+        bad.append(f"trail {p['trail']} over {p['frames']} frames")
+    if (p["nl"], p["out_nl"], p["couple"] is not None) != (nl, 1, couple):
+        bad.append(f"lanes {p['nl']}, output lanes {p['out_nl']}, "
+                   f"coupling {p['couple'] is not None}")
+    if native.Parser().probe(data, parse_adts_header(data[:7])) is None:
+        bad.append("the native probe refuses it")
+    if bad:
+        raise SystemExit(f"{name}: " + "; ".join(bad))
+    flips = [f for f in range(1, 50) if want_trail[f] != want_trail[f - 1]]
+    return f"band mode flips at frames {flips}, {nl} lanes"
 
 
 def stereo_pcm(i: int) -> np.ndarray:
@@ -248,6 +359,14 @@ def main() -> None:
             data = make_cce_stream(point, j)
             write(f"heaac_cce_{point}_{j}.aac", data,
                   check_cce(point, j, data))
+    for i in range(N):
+        data = make_flip_stream(i)
+        write(f"heaac_v2_flip_{i}.aac", data,
+              check_flip(f"flip stream {i}", data, flip_trail(i, 50), 1,
+                         False))
+    data = make_flip_cce_stream()
+    write("heaac_flip_cce_0.aac", data,
+          check_flip("flip + CCE stream", data, [0] * 6 + [1] * 44, 2, True))
 
 
 if __name__ == "__main__":
