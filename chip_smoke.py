@@ -66,7 +66,33 @@ Phases (any failure exits non-zero):
      (a warm-up, then a timed run): exactly 50 K1 launches at napb 30
      and 50 at napb 50, non-silent lanes, lanes 0-7 within 2 LSB of the
      port's CPU run and of the golden over 16 frames, and the realtime
-     factor beside phase 4's.
+     factor beside phase 4's;
+  8. the rest of decode_batch's batched routes: (a)
+     heaac_tpu_torch.decode_batch with its default device over a
+     shuffled list of 64 AAC-LC streams with a coupling channel (the 8
+     committed tests/data/lc_cce_{after,before}_{0..3}.aac, 8 times:
+     the LC planner and the coupled LC scan), two 20-band streams with a
+     corrupted frame 1 (``CORRUPT`` of tools/make_torch_golden.py: the
+     native probe refuses them, the Python prober buckets them HE, and
+     the first of them is stream 0 of its bucket: the Python profile
+     parse) and the 8 bundled 20-band streams, each its own buffer;
+     checks the two buckets' ``bucket_stats`` (streams, frames, steps),
+     K1's launches (exactly groups x steps at napb 30, none at 50), the
+     profile parse, every output's shape and non-silence, and the first
+     16 frames of streams 0-1 of each kind within 2 LSB of the JAX
+     goldens (tests/data/lc_batch_golden_jax.npz,
+     decode_batch_golden_jax.npz) and of the port's CPU decode_batch;
+     prints the LC bucket's parse + upload and decode seconds apart;
+     (b) downsampled SBR at full width: the 8 committed streams
+     tests/data/heaac_ds_{0..7}.aac parsed once by the port's Python
+     planner with their AudioSpecificConfig (tests/data/heaac_ds.asc),
+     tiled to 512 lanes and decoded by one
+     ``qwire_scan_decode(downsampled=1)`` over 50 frames (a warm-up,
+     then a timed run): exactly 50 K1 launches at napb 30, non-silent
+     lanes, lanes 0-7 within 2 LSB of the port's CPU run and lanes 0-3
+     of the JAX golden (tests/data/downsampled_golden_jax.npz) over 16
+     frames, and the realtime factor (audio at the 24 kHz core rate,
+     1024 samples a frame).
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -110,6 +136,10 @@ GOLDEN_FRAMES = 16
 FLIP_FILE = "tests/data/heaac_v2_flip_{}.aac"
 FLIP_CCE_FILE = "tests/data/heaac_flip_cce_0.aac"
 FLIP_BATCH = 4                 # flip streams 0-3 in phase 7 (a)
+LC_CCE_COPIES = 8              # copies of each LC + CCE stream in phase 8
+PROBED = ("he20_f1_0", "he20_f1_1")  # phase 8 (a): the Python prober's
+DS_FILE = "tests/data/heaac_ds_{}.aac"
+DS_ASC = "tests/data/heaac_ds.asc"
 FLUSH_BYTES = 128 << 20        # > 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -486,6 +516,19 @@ class FlipLog(BucketLog):
             self.flips.append(st)
 
 
+class RouteLog(FlipLog):
+    """decode_batch's per-bucket and per-flip-stream records, and every
+    message."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        super().emit(record)
+        self.messages.append(record.getMessage())
+
+
 def flip_gold() -> dict:
     with np.load(golden_tool().FLIP_GOLDEN) as z:
         return {k: z[k] for k in z.files if k.startswith("pcm_")}
@@ -577,10 +620,12 @@ def flip_batch(K, card: str, bench: list) -> dict:
     return launches
 
 
-def flip_scan(frames: list, T: int, rate_idx: int, device):
-    """Planner frames of single-lane streams -> one flip scan over T
-    frames on ``device``; returns (pcm [T, lanes, 2, 2048] int16 on the
-    host, seconds of upload + scan)."""
+def planner_scan(frames: list, T: int, rate_idx: int, device,
+                 downsampled: int = 0):
+    """Planner frames of single-lane streams -> one scan over T frames on
+    ``device``: the flip scan, or with ``downsampled`` the plain scan
+    with the 32-band synthesis; returns (pcm [T, lanes, 2, N] int16 on
+    the host, seconds of upload + scan)."""
     from heaac_tpu_torch.codec import heaac_graph
     from heaac_tpu_torch.codec.batch import pack_planner_frames
     from heaac_tpu_torch.host import R_W1, spec_static_args
@@ -591,10 +636,18 @@ def flip_scan(frames: list, T: int, rate_idx: int, device):
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry = heaac_graph.init_qwire_flip_carry(len(frames), device)
-    _, pcm = heaac_graph.qwire_scan_decode_flip(
-        torch.from_numpy(heap).to(device), torch.from_numpy(recs).to(device),
-        carry, 0, S, rate_idx, sa["NB"], sa["NS"], sa["SEC"])
+    heap_d = torch.from_numpy(heap).to(device)
+    recs_d = torch.from_numpy(recs).to(device)
+    if downsampled:
+        carry = heaac_graph.init_qwire_carry(len(frames), device)
+        _, pcm = heaac_graph.qwire_scan_decode(
+            heap_d, recs_d, carry, 0, 1, S, rate_idx, sa["NB"], sa["MS"],
+            sa["NS"], sa["SEC"])
+    else:
+        carry = heaac_graph.init_qwire_flip_carry(len(frames), device)
+        _, pcm = heaac_graph.qwire_scan_decode_flip(
+            heap_d, recs_d, carry, 0, S, rate_idx, sa["NB"], sa["NS"],
+            sa["SEC"])
     if cuda:
         torch.cuda.synchronize()
     return pcm.cpu().numpy(), time.perf_counter() - t0
@@ -614,9 +667,9 @@ def flip_full_width(K, card: str, device="cuda") -> dict:
     parse_s = time.perf_counter() - t0
     T = len(parsed[0])
     lanes = [parsed[i % 8] for i in range(LANES)]
-    flip_scan(lanes, T, rate_idx, device)          # warm-up
+    planner_scan(lanes, T, rate_idx, device)       # warm-up
     reset_launches(K)
-    pcm, wall = flip_scan(lanes, T, rate_idx, device)
+    pcm, wall = planner_scan(lanes, T, rate_idx, device)
     launches = dict(K.launches)
     audio_s = LANES * T * 2048 / 48000
     print(f"flip scan full width: {LANES} lanes x {T} frames, audio "
@@ -629,8 +682,8 @@ def flip_full_width(K, card: str, device="cuda") -> dict:
     peak = np.abs(pcm.astype(np.int32)).max(axis=(0, 2, 3))
     if not (peak > 0).all():
         raise SystemExit(f"silent lanes: {np.flatnonzero(peak == 0)}")
-    cpu, _ = flip_scan([p[:GOLDEN_FRAMES] for p in parsed], GOLDEN_FRAMES,
-                       rate_idx, "cpu")
+    cpu, _ = planner_scan([p[:GOLDEN_FRAMES] for p in parsed],
+                          GOLDEN_FRAMES, rate_idx, "cpu")
     got = pcm[:GOLDEN_FRAMES, :8].astype(np.int32)
     d_cpu = int(np.abs(got - cpu).max())
     gold = flip_gold()
@@ -645,6 +698,151 @@ def flip_full_width(K, card: str, device="cuda") -> dict:
           f"golden: max {d_cpu_gold} LSB", flush=True)
     if max(d_cpu, d_gold, d_cpu_gold) > TOL_LSB:
         raise SystemExit("flip scan: card output differs from the "
+                         "references")
+    return dict(launches=launches, realtime=audio_s / wall)
+
+
+def lc_prober_batch(K, card: str, bench: list) -> dict:
+    """Phase 8 (a): decode_batch on the card over the LC + CCE streams,
+    the streams the Python prober buckets and the 20-band streams,
+    shuffled; returns K1's launches."""
+    from heaac_tpu_torch import decode_batch
+    from heaac_tpu_torch.host import count_adts_frames, split_adts_stream
+    tool = golden_tool()
+    lc_names = [f"lc_cce_{point}_{j}" for point in ("after", "before")
+                for j in range(4)]
+    items = ([(name, tool.named_stream(name, REPO)) for name in lc_names]
+             * LC_CCE_COPIES
+             + [(name, tool.corrupted(name, REPO)) for name in PROBED]
+             + [(f"he20_{i}", d) for i, d in enumerate(bench)])
+    # seed 3 puts a PROBED stream first among the HE streams: stream 0 of
+    # the HE bucket, whose profile then comes from the Python planner
+    order = np.random.default_rng(3).permutation(len(items))
+    items = [items[k] for k in order]
+    streams = [bytes(bytearray(d)) for _, d in items]
+    flog = RouteLog()
+    logger = logging.getLogger("heaac_tpu_torch")
+    logger.addHandler(flog)
+    logger.setLevel(logging.INFO)
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs = decode_batch(streams)
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    logger.removeHandler(flog)
+    names = [name for name, _ in items]
+    he_first = next(name for name in names if name.startswith("he20"))
+    profile_parse = ("qwire pipelined decode: stream 0's profile from the "
+                     "Python planner" in flog.messages)
+    stats = {st["key"]: st for st in flog.stats}
+    for key, st in stats.items():
+        print(f"bucket {key}: {st['streams']} streams, {st['frames']} "
+              f"frames, {st['steps']} steps, {st['audio_s']:.3f} s of "
+              f"audio, wall {st['wall_s']:.3f} s (construction "
+              f"{st['init_s']:.3f} s), realtime "
+              f"{st['audio_s'] / st['wall_s']:.1f}x on {card}", flush=True)
+    lc = stats.get(("lc", 6, 0, 0))
+    he = stats.get(("he", 6, 1, 0))
+    n_lc, n_he = len(lc_names) * LC_CCE_COPIES, len(PROBED) + len(bench)
+    frames = count_adts_frames(bench[0])
+    if (set(stats) != {("lc", 6, 0, 0), ("he", 6, 1, 0)} or flog.flips
+            or (lc["streams"], lc["frames"], lc["steps"])
+            != (n_lc, n_lc * frames, frames)
+            or (he["streams"], he["frames"], he["steps"])
+            != (n_he, n_he * frames, frames)):
+        raise SystemExit(f"phase 8 (a) buckets {stats}, flip streams "
+                         f"{flog.flips}")
+    print(f"LC + CCE bucket: parse + upload {lc['init_s']:.3f} s, decode "
+          f"(scan, copy out) {lc['wall_s'] - lc['init_s']:.3f} s; whole "
+          f"call {wall:.3f} s; first HE stream {he_first}, profile from "
+          f"the Python planner: {profile_parse}", flush=True)
+    expect = {30: -(-n_he // GROUP_LANES) * he["steps"], 50: 0}
+    print(f"K1 phase 8 (a): {launches} launches, expected {expect} (HE "
+          f"bucket: {-(-n_he // GROUP_LANES)} group x {he['steps']} steps)",
+          flush=True)
+    if launches != expect:
+        raise SystemExit(f"K1 launched {launches}, expected {expect}")
+    if he_first not in PROBED or not profile_parse:
+        raise SystemExit("the HE bucket's stream 0 did not take its profile "
+                         "from the Python planner")
+    for (name, data), pcm in zip(items, outs):
+        spf, ch = (2048, 2) if name.startswith("he") else (1024, 1)
+        if (tuple(pcm.shape) != (count_adts_frames(data) * spf, ch)
+                or int(pcm.abs().max()) == 0):
+            raise SystemExit(f"{name}: output {tuple(pcm.shape)}, silent "
+                             "or of the wrong shape")
+    checked = [f"{kind}_{i}" for kind in ("lc_cce_after", "lc_cce_before",
+                                          "he20_f1", "he20")
+               for i in (0, 1)]
+    gold = {}
+    for path in (tool.LC_GOLDEN, tool.BATCH_GOLDEN):
+        with np.load(path) as z:
+            gold.update({str(name): z[f"pcm_{k}"]
+                         for k, name in enumerate(z["names"])})
+    data = dict(items)
+    heads = [b"".join(split_adts_stream(data[name])[:GOLDEN_FRAMES])
+             for name in checked]
+    cpu = decode_batch(heads, device="cpu")
+    worst = {}
+    for k, name in enumerate(checked):
+        rows = cpu[k].shape[0]
+        got = outs[names.index(name)][:rows].numpy().astype(np.int32)
+        worst[name] = (int(np.abs(got - gold[name][:rows]).max()),
+                       int(np.abs(got - cpu[k].numpy()).max()))
+    print(f"streams 0-1 of each kind, first {GOLDEN_FRAMES} frames, max LSB "
+          f"(vs JAX golden, vs port CPU): {worst}", flush=True)
+    if max(max(v) for v in worst.values()) > TOL_LSB:
+        raise SystemExit("phase 8 (a): card output differs from the "
+                         "references")
+    return launches
+
+
+def downsampled_full_width(K, card: str, device="cuda") -> dict:
+    """Phase 8 (b): the 8 downsampled streams tiled to LANES lanes, one
+    downsampled scan over all frames on the card; returns K1's launches
+    and the realtime factor."""
+    from heaac_tpu_torch.codec.planner import parse_stream_qwire
+    asc = open(os.path.join(REPO, DS_ASC), "rb").read()
+    data = [open(os.path.join(REPO, DS_FILE.format(i)), "rb").read()
+            for i in range(8)]
+    t0 = time.perf_counter()
+    parsed = [parse_stream_qwire(d, asc=asc) for d in data]
+    parse_s = time.perf_counter() - t0
+    if {p[1:] for p in parsed} != {(24000, 1, 0, 1)}:
+        raise SystemExit(f"downsampled streams: (rate, lanes, is34, ds) "
+                         f"{[p[1:] for p in parsed]}")
+    parsed = [p[0] for p in parsed]
+    T = len(parsed[0])
+    lanes = [parsed[i % 8] for i in range(LANES)]
+    planner_scan(lanes, T, 6, device, downsampled=1)     # warm-up
+    reset_launches(K)
+    pcm, wall = planner_scan(lanes, T, 6, device, downsampled=1)
+    launches = dict(K.launches)
+    audio_s = LANES * T * 1024 / 24000
+    print(f"downsampled scan full width: {LANES} lanes x {T} frames, pcm "
+          f"{pcm.shape}, audio {audio_s:.3f} s, upload + scan {wall:.3f} s,"
+          f" realtime {audio_s / wall:.1f}x on {card} (planner parse of the"
+          f" 8 streams {parse_s:.3f} s); K1 launches {launches}", flush=True)
+    if launches != {30: T, 50: 0} or pcm.shape[-1] != 1024:
+        raise SystemExit(f"K1 launched {launches} for {T} frames of the "
+                         f"downsampled scan (pcm {pcm.shape})")
+    peak = np.abs(pcm.astype(np.int32)).max(axis=(0, 2, 3))
+    if not (peak > 0).all():
+        raise SystemExit(f"silent lanes: {np.flatnonzero(peak == 0)}")
+    cpu, _ = planner_scan([p[:GOLDEN_FRAMES] for p in parsed],
+                          GOLDEN_FRAMES, 6, "cpu", downsampled=1)
+    got = pcm[:GOLDEN_FRAMES, :8].astype(np.int32)
+    d_cpu = int(np.abs(got - cpu).max())
+    with np.load(golden_tool().DS_GOLDEN) as z:
+        gold = z["pcm"]                            # [16, 4, 2, 1024]
+    d_gold = int(np.abs(got[:, :gold.shape[1]] - gold).max())
+    d_cpu_gold = int(np.abs(cpu[:, :gold.shape[1]].astype(np.int32)
+                            - gold).max())
+    print(f"downsampled lanes 0-7 x {GOLDEN_FRAMES} frames vs port CPU: max "
+          f"{d_cpu} LSB; lanes 0-3 vs JAX golden: max {d_gold} LSB; port "
+          f"CPU vs JAX golden: max {d_cpu_gold} LSB", flush=True)
+    if max(d_cpu, d_gold, d_cpu_gold) > TOL_LSB:
+        raise SystemExit("downsampled scan: card output differs from the "
                          "references")
     return dict(launches=launches, realtime=audio_s / wall)
 
@@ -741,6 +939,14 @@ def main() -> None:
           flush=True)
     phase_done("7 flip path")
 
+    # ---- 8. LC planner, Python prober, downsampled SBR ---------------------
+    lc_a = lc_prober_batch(K, card, bench)
+    ds_b = downsampled_full_width(K, card)
+    print(f"realtime: downsampled scan {ds_b['realtime']:.1f}x, main path "
+          f"(phase 4) {main_rt:.1f}x, {LANES} lanes x 50 frames each",
+          flush=True)
+    phase_done("8 LC planner, prober and downsampled SBR")
+
     row = dict(krows[30])
     row.pop("max_abs_err")
     print(json.dumps({"kernels": [{
@@ -768,7 +974,16 @@ def main() -> None:
         "launches_phase7b_napb30": flip_b["launches"][30],
         "launches_phase7b_napb50": flip_b["launches"][50],
         "launches_phase7b_path": f"phase 7 (b): qwire_scan_decode_flip, "
-                                 f"{LANES} lanes x 50 frames"}]}))
+                                 f"{LANES} lanes x 50 frames",
+        "launches_phase8a_napb30": lc_a[30],
+        "launches_phase8a_path": "phase 8 (a): decode_batch, 64 AAC-LC + "
+                                 "CCE streams (no SBR: no K1), 2 streams "
+                                 "the Python prober buckets and 8 20-band "
+                                 "streams (one HE group)",
+        "launches_phase8b_napb30": ds_b["launches"][30],
+        "launches_phase8b_path": "phase 8 (b): qwire_scan_decode("
+                                 f"downsampled=1), {LANES} lanes x 50 "
+                                 "frames"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

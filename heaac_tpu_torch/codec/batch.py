@@ -2,8 +2,10 @@
 front door ``decode_batch``.
 
 Counterparts: ``heaac_tpu/codec/batch.py`` — QwirePipelinedDecoder
-(with its Python-planner fallback), decode_qwire_flip_stream,
-LcStreamBatchDecoder, decode_batch, _decode_bucket_retry, _decode_bucket.
+(with its Python-planner fallback and Python profile parse),
+decode_qwire_flip_stream, LcStreamBatchDecoder (with its LC-planner
+branch), decode_batch (with its Python prober), _decode_bucket_retry,
+_decode_bucket.
 
 QwirePipelinedDecoder (HE-AAC v1/v2): the native parser (``native.py``)
 writes each group of streams into a byte heap + per-frame-lane records
@@ -19,18 +21,25 @@ lane per coupling channel element; AFTER_IMDCT coupling travels as
 per-group edge arrays beside the heap and records.
 
 LcStreamBatchDecoder (AAC-LC / Main): the native whole-stream parser
-gives every frame's dequantized spectra; one upload, then the IMDCT /
-overlap-add scan (``heaac_graph.lc_scan_decode``).
+gives every frame's dequantized spectra, or, for a stream it refuses
+(PCE / CCE / SSR), the LC planner (``planner.LcPlanningDecoder``) its
+core plans and AFTER_IMDCT edges; one upload, then the IMDCT /
+overlap-add scan (``heaac_graph.lc_scan_decode``, which mixes the
+coupling into the float output before rounding).
 
 Differences from the JAX package:
-  - stream profiles (lanes, SBR, PS band mode) come from a native probe
-    of the first two frames, not the Python planner; the output lanes of
-    a channel configuration 0 stream come from its first frame's program
-    config element (``host.pce_lanes``);
+  - the decoder's profile (lanes, SBR, PS band mode) comes from a native
+    probe of stream 0's first two frames, with the output lanes of a
+    channel configuration 0 stream from its first frame's program config
+    element (``host.pce_lanes``); only where the probe refuses or its
+    lanes disagree with the layout from the Python planner, which the
+    JAX package always runs;
+  - decode_batch's Python prober parses the first frame and does not
+    decode it (the decoding half of ``Decoder`` is not ported);
   - a stream whose PS band mode flips mid-stream goes, after the bisect,
     through ``decode_qwire_flip_stream``; what the JAX package hands to
-    its single-stream ``Decoder`` (and downsampled SBR) raises
-    NotImplementedError naming the stream;
+    its single-stream ``Decoder`` raises NotImplementedError naming the
+    stream;
   - the heap travels as a uint8 tensor (the f32 view existed only for
     the TPU transport).
 """
@@ -53,7 +62,8 @@ from ..host import (R_TOKOFF, R_W1, REC_W, count_adts_frames,
 from .heaac_graph import (init_qwire_carry, init_qwire_flip_carry,
                           lc_scan_decode, qwire_scan_decode,
                           qwire_scan_decode_flip)
-from .planner import parse_stream_qwire
+from .decoder import Decoder
+from .planner import LcPlanningDecoder, parse_stream_qwire
 
 log = logging.getLogger("heaac_tpu_torch")
 
@@ -135,8 +145,11 @@ class QwirePipelinedDecoder:
     ``device="cpu"`` (without a card the default raises RuntimeError).
     Stream i sits in group ``group_of[i]`` at lanes ``slot_of[i] * nl``
     onwards; its first ``out_nl`` lanes are output channels, the rest
-    its coupling channels' lanes.  A stream the native parser refuses
-    is parsed by the Python planner; one whose PS band mode flips raises
+    its coupling channels' lanes.  The lanes, output lanes, rate and PS
+    band mode come from the native probe of stream 0, or from the Python
+    planner's parse of it where the probe refuses it or its lanes
+    disagree with its layout.  A stream the native parser refuses is
+    parsed by the Python planner; one whose PS band mode flips raises
     NotImplementedError("PS band mode changes mid-stream"), which
     ``decode_batch`` answers with ``decode_qwire_flip_stream``."""
 
@@ -148,24 +161,20 @@ class QwirePipelinedDecoder:
         self.hdr = parse_adts_header(self.streams[0][:7])
         self.G = min(group_streams, len(self.streams))
         self.parser = native.Parser()
-        probe = self.parser.probe(self.streams[0], self.hdr)
-        if probe is None:
-            raise NotImplementedError(
-                "stream 0: the native probe cannot take it, and the Python "
-                "profile parse is not ported")
-        self.nl = probe["lanes"]
-        if self.hdr.chan_config:
-            self.out_nl = _layout_lanes(self.hdr.chan_config)
-            n_cce = self.nl - self.out_nl
+        profile = self._native_profile()
+        if profile is None:
+            # the JAX constructor's profile parse (batch.py:947-953)
+            log.info("qwire pipelined decode: stream 0's profile from the "
+                     "Python planner")
+            info0 = {}
+            _, rate, self.nl, self.is34, self.ds = parse_stream_qwire(
+                self.streams[0], max_frames=max_frames, info_out=info0)
+            self.out_nl = info0["out_nl"]
+            self.sample_rate = rate
         else:
-            self.out_nl, n_cce = pce_lanes(
-                self.streams[0][:self.hdr.frame_length])
-        if n_cce < 0 or self.out_nl + n_cce != self.nl:
-            raise NotImplementedError(
-                f"stream 0: {self.nl} lanes where its layout has "
-                f"{self.out_nl} output and {n_cce} coupling channel lanes "
-                "(a layout change needs the Python profile parse, which is "
-                "not ported)")
+            self.nl, self.out_nl, self.sample_rate, self.is34 = profile
+            # ADTS signals SBR implicitly: never the downsampled mode
+            self.ds = 0
         counts = [count_adts_frames(s) for s in self.streams]
         if max_frames is not None:
             counts = [min(c, max_frames) for c in counts]
@@ -184,9 +193,6 @@ class QwirePipelinedDecoder:
                 self.slot_of[i] = slot
             tg = max(counts[i] for i in idxs)
             self.group_T.append(min(self.T, -(-max(tg, 1) // 32) * 32))
-        self.sample_rate = self.hdr.sample_rate << probe["sbr"]
-        # ADTS signals SBR implicitly: never the downsampled mode
-        self.is34, self.ds = probe["is34"], 0
         self.S = token_cap
         self.NB = 0
         self.MS = 0
@@ -206,6 +212,28 @@ class QwirePipelinedDecoder:
         self._cap = cap
         self._bufsets = [None, None]
         self._uploaded = [None, None]   # CUDA event per staging set
+
+    def _native_profile(self):
+        """(lanes, output lanes, rate, is34) of stream 0 from the native
+        probe and its layout, or None where the probe refuses the stream
+        or its lanes disagree with the layout."""
+        probe = self.parser.probe(self.streams[0], self.hdr)
+        if probe is None:
+            return None
+        nl = probe["lanes"]
+        if self.hdr.chan_config:
+            out_nl = _layout_lanes(self.hdr.chan_config)
+            n_cce = nl - out_nl
+        else:
+            try:
+                out_nl, n_cce = pce_lanes(
+                    self.streams[0][:self.hdr.frame_length])
+            except NotImplementedError:      # no PCE opens frame 0
+                return None
+        if n_cce < 0 or out_nl + n_cce != nl:
+            return None
+        return (nl, out_nl, self.hdr.sample_rate << probe["sbr"],
+                probe["is34"])
 
     def _buffers(self, bufset: int):
         if self._bufsets[bufset] is None:
@@ -331,8 +359,10 @@ class QwirePipelinedDecoder:
             data, max_frames=T, err_out=errs, info_out=pinfo)
         if ds:
             raise NotImplementedError(
-                f"stream {gi} of the group: downsampled SBR, which is not "
-                "ported")
+                f"stream {gi} of the group: downsampled SBR, which ADTS "
+                "never signals (it takes an AudioSpecificConfig: "
+                "planner.parse_stream_qwire(data, asc=...) into "
+                "heaac_graph.qwire_scan_decode(downsampled=1))")
         if (rate, nl, is34) != (self.sample_rate, self.nl, self.is34):
             raise ValueError(
                 f"stream {gi} of the group: profile (rate, lanes, is34) "
@@ -463,10 +493,13 @@ def decode_qwire_flip_stream(data: bytes, max_frames: int | None = None,
 
 class LcStreamBatchDecoder:
     """Batched AAC-LC decode: each stream contributes its channel lanes
-    (``lane_block`` per stream, the first ``channels`` of them audio);
-    the whole stream is parsed natively up front, uploaded once and
-    decoded by one IMDCT / overlap-add scan on ``device`` (the card
-    unless the caller passes ``device="cpu"``)."""
+    (``lane_block`` per stream, the first ``channels`` of them audio, then
+    its coupling channels' lanes); the whole stream is parsed up front,
+    uploaded once and decoded by one IMDCT / overlap-add scan on
+    ``device`` (the card unless the caller passes ``device="cpu"``).
+    ``couple`` holds the AFTER_IMDCT edges over the batch's lanes
+    (etgt [K], esrc [K] int64, gains [T, K] f32) on the device, or
+    None."""
 
     def __init__(self, streams, max_frames: int | None = None,
                  device="cuda"):
@@ -479,51 +512,93 @@ class LcStreamBatchDecoder:
         self.B = len(parsed)
         self.sample_rate = parsed[0][1]
         self.channels = parsed[0][2]
-        self.lane_block = lb = max(p[2] for p in parsed)
+        self.lane_block = lb = max(p[3] for p in parsed)
         self.frame_counts = [len(p[0]["coeffs"]) for p in parsed]
         self.T = T = max(self.frame_counts)
         # shorter streams and narrower layouts pad with silent lanes:
         # zero spectra, ONLY_LONG sine windows
         core = {k: np.zeros((T, self.B * lb) + v.shape[2:], v.dtype)
                 for k, v in parsed[0][0].items()}
-        for b, (c, _, lanes) in enumerate(parsed):
+        for b, (c, _, _, lanes, _) in enumerate(parsed):
             for k, v in c.items():
                 core[k][:len(v), b * lb:b * lb + lanes] = v
         self.core = {k: torch.from_numpy(v).to(self.device)
                      for k, v in core.items()}
+        # each stream's edges over the batch's lanes, gains padded to T
+        etgt, esrc, gcols = [], [], []
+        for b, p in enumerate(parsed):
+            if p[4] is None:
+                continue
+            struct, gains = p[4]
+            for k, (tg, sr) in enumerate(struct):
+                etgt.append(b * lb + tg)
+                esrc.append(b * lb + sr)
+                col = np.zeros(T, np.float32)
+                col[:len(gains)] = gains[:, k]
+                gcols.append(col)
+        self.couple = None
+        if etgt:
+            self.couple = tuple(
+                torch.from_numpy(a).to(self.device)
+                for a in (np.array(etgt, np.int64), np.array(esrc, np.int64),
+                          np.stack(gcols, 1)))
 
     def _parse_one(self, i: int, st: bytes, max_frames: int | None):
-        """-> (core dict with [T, lanes, ...] leaves, rate, lanes) by the
-        native whole-stream parser (ht_parse_stream: ADTS framing,
-        element loop, dequant, prediction, TNS)."""
+        """-> (core dict with [T, lanes, ...] leaves, rate, channels,
+        lanes, couple): the native whole-stream parser (ht_parse_stream:
+        ADTS framing, element loop, dequant, prediction, TNS) for channel
+        configurations 1-7, the LC planner for a stream it refuses (PCE /
+        CCE / SSR).  couple is None, or the stream's one edge structure
+        [(tgt, src)] (the sorted union of its frames' edges) and gains
+        [T, E] (0 where a frame lacks an edge)."""
         frames = split_adts_stream(st)
         if not frames:
             raise ValueError(f"stream {i}: not an ADTS stream")
         if max_frames is not None:
             frames = frames[:max_frames]
         hdr = parse_adts_header(frames[0][:7])
-        r = None
         if hdr.chan_config and hdr.object_type in (1, 2):
             layout = TB.CHANNEL_LAYOUT_MAP[hdr.chan_config]
             r = self.parser.parse_stream(st, hdr.sampling_index, layout,
                                          len(frames))
-        if r is None:
-            raise NotImplementedError(
-                f"stream {i} needs the Python planner (PCE / CCE / SSR), "
-                "which is not ported")
-        coeffs, meta = r
-        core = dict(coeffs=coeffs, ws=meta[..., 0].astype(np.int64),
-                    wsp=meta[..., 1].astype(np.int64),
-                    kbd=meta[..., 2].astype(np.int64),
-                    kbdp=meta[..., 3].astype(np.int64))
-        return core, hdr.sample_rate, coeffs.shape[1]
+            if r is not None:
+                coeffs, meta = r
+                core = dict(coeffs=coeffs,
+                            ws=meta[..., 0].astype(np.int64),
+                            wsp=meta[..., 1].astype(np.int64),
+                            kbd=meta[..., 2].astype(np.int64),
+                            kbdp=meta[..., 3].astype(np.int64))
+                lanes = coeffs.shape[1]
+                return core, hdr.sample_rate, lanes, lanes, None
+        dec = LcPlanningDecoder(adts_probe=frames[0][:7])
+        for f in frames:
+            dec.decode_frame(f)
+        core = {k: np.stack([fc[k] for fc in dec.frames_core])
+                for k in dec.frames_core[0]}
+        core["coeffs"] = core["coeffs"].astype(np.float32)
+        for k in ("ws", "wsp", "kbd", "kbdp"):
+            core[k] = core[k].astype(np.int64)
+        couple = None
+        if any(dec.frames_couple):
+            struct = sorted({(tg, sr) for fr in dec.frames_couple
+                             for tg, sr, _ in fr})
+            pos = {e: k for k, e in enumerate(struct)}
+            gains = np.zeros((len(dec.frames_couple), len(struct)),
+                             np.float32)
+            for t, fr in enumerate(dec.frames_couple):
+                for tg, sr, g in fr:
+                    gains[t, pos[(tg, sr)]] = g
+            couple = (struct, gains)
+        return (core, dec.sample_rate, dec.channels,
+                core["coeffs"].shape[1], couple)
 
     def decode(self):
         """pcm [T, B * lane_block, 1024] int16 on the device, after the
-        device is done."""
+        device is done; the audio channels are the first ``channels``
+        lanes of each stream's block."""
         saved = torch.zeros((self.B * self.lane_block, 512),
                             dtype=torch.float32, device=self.device)
-        _, pcm = lc_scan_decode(self.core, saved)
+        _, pcm = lc_scan_decode(self.core, saved, self.couple)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return pcm
@@ -535,6 +610,31 @@ class LcStreamBatchDecoder:
 # ---------------------------------------------------------------------------
 # Heterogeneous batch front door: bucket streams by decode profile
 # ---------------------------------------------------------------------------
+class _FrameProbe(Decoder):
+    """The parsing half of ``Decoder`` with nothing after the parse: the
+    Python prober reads what the parse leaves."""
+
+    def _spectral_to_sample(self, present):
+        return None
+
+
+def _python_probe(data: bytes) -> tuple:
+    """decode_batch's Python prober (JAX batch.py:1791-1801): the first
+    frame through the Python element parser -> (SBR signalled, any
+    element's PS in 34 bands); (False, False), an AAC-LC bucket, when the
+    parse raises.  The JAX package decodes the frame too; its decoding
+    half is not ported, so a stream whose parse succeeds and whose
+    decode would raise is bucketed by the parse."""
+    probe = _FrameProbe(adts_probe=data[:7])
+    try:
+        probe.decode_frame(split_adts_stream(data)[0])
+    except Exception:  # noqa: BLE001 - as the JAX probe: any error is LC
+        return False, False
+    return probe.m4ac.sbr == 1, any(
+        el.sbr is not None and el.sbr.ps is not None and el.sbr.ps.is34bands
+        for el in probe.elements.values())
+
+
 def decode_batch(streams, device="cuda") -> list:
     """Decode many streams of possibly different configurations.
 
@@ -545,10 +645,14 @@ def decode_batch(streams, device="cuda") -> list:
     input order: stereo for HE-AAC v2 (PS) and mono-core HE streams, one
     channel per output lane otherwise (stereo HE-AAC v1: two), never the
     lanes of coupling channel elements; a buffer with no ADTS sync word
-    gives [0, 1].  A stream the port cannot decode raises NotImplementedError
-    naming its index (the JAX package's single-stream fallbacks are not
+    gives [0, 1].  A stream the native probe refuses is bucketed by the
+    Python prober (``_python_probe``).  A stream the port cannot decode
+    batched raises NotImplementedError naming its index (the JAX
+    package decodes it with its single-stream ``Decoder``, which is not
     ported).  Each bucket logs, at INFO, its key, streams, frames, audio
-    and wall seconds (also as the record's ``bucket_stats`` dict)."""
+    and wall seconds (also as the record's ``bucket_stats`` dict, with
+    the scan steps and ``init_s``, the seconds of the decoder's
+    construction: for AAC-LC the whole parse and upload)."""
     dev = resolve(device)
     parser = native.Parser()
     streams = [bytes(s) for s in streams]
@@ -568,11 +672,11 @@ def decode_batch(streams, device="cuda") -> list:
         probe = (parser.probe(data, hdr) if hdr.object_type in (1, 2)
                  else None)
         if probe is None:
-            raise NotImplementedError(
-                f"stream {i}: the native probe cannot take it and the "
-                "Python prober is not ported")
-        key = ("he" if probe["sbr"] else "lc", hdr.sampling_index,
-               hdr.chan_config, probe["is34"])
+            sbr, is34 = _python_probe(data)
+        else:
+            sbr, is34 = probe["sbr"], probe["is34"]
+        key = ("he" if sbr else "lc", hdr.sampling_index, hdr.chan_config,
+               int(is34))
         buckets.setdefault(key, []).append(i)
     for key, idxs in buckets.items():
         _decode_bucket_retry(key, idxs, streams, results, dev)
@@ -584,33 +688,46 @@ def _decode_bucket_retry(key, idxs, streams, results, device,
     """Decode one bucket; on failure bisect it down to the stream at
     fault.  A single stream whose batched decode failed on a PS band-mode
     flip is decoded by ``decode_qwire_flip_stream`` (logged at INFO with
-    a ``flip_stats`` dict: stream, frames, audio and wall seconds); any
-    other raises NotImplementedError naming it (the JAX package decodes
-    it with its single-stream decoder, which is not ported)."""
+    a ``flip_stats`` dict: stream, frames, audio and wall seconds).  Any
+    other single stream that fails, and a flip stream whose flip decode
+    fails, raises NotImplementedError naming it, chained to the error
+    (the JAX package decodes it with its single-stream ``Decoder``,
+    which is not ported)."""
     try:
         _decode_bucket(key, [streams[i] for i in idxs], idxs, results,
                        device)
         return
     except Exception as exc:  # noqa: BLE001 - bisect, then name the stream
-        if len(idxs) == 1:
-            if isinstance(exc, NotImplementedError) \
-                    and "PS band mode" in str(exc):
-                _decode_flip(idxs[0], streams[idxs[0]], results, device)
-                return
-            raise NotImplementedError(
-                f"stream {idxs[0]}: its batched decode failed "
-                f"({type(exc).__name__}: {exc}) and what the JAX package "
-                "decodes it with (its single-stream decoder, or for AAC-LC "
-                "its Python planner) is not ported") from exc
+        failed = exc
+    if len(idxs) > 1:
         if depth == 0:
             log.warning("decode_batch: bucket %s (%d streams) failed (%s: "
                         "%s); bisecting to isolate the offender", key,
-                        len(idxs), type(exc).__name__, exc)
-    mid = len(idxs) // 2
-    _decode_bucket_retry(key, idxs[:mid], streams, results, device,
-                         depth + 1)
-    _decode_bucket_retry(key, idxs[mid:], streams, results, device,
-                         depth + 1)
+                        len(idxs), type(failed).__name__, failed)
+        mid = len(idxs) // 2
+        _decode_bucket_retry(key, idxs[:mid], streams, results, device,
+                             depth + 1)
+        _decode_bucket_retry(key, idxs[mid:], streams, results, device,
+                             depth + 1)
+        return
+    # raised outside the except blocks: the traceback shows the cause as
+    # the cause, not as an error met "during handling" of another
+    if not (isinstance(failed, NotImplementedError)
+            and "PS band mode" in str(failed)):
+        _raise_unported(idxs[0], "its batched decode", failed)
+    try:
+        _decode_flip(idxs[0], streams[idxs[0]], results, device)
+        return
+    except Exception as exc:  # noqa: BLE001 - name the stream
+        failed = exc
+    _raise_unported(idxs[0], "its band-mode-flip decode", failed)
+
+
+def _raise_unported(i: int, what: str, exc: Exception):
+    raise NotImplementedError(
+        f"stream {i}: {what} failed ({type(exc).__name__}: {exc}) and the "
+        "JAX package's single-stream Decoder, which decodes it there, is "
+        "not ported") from exc
 
 
 def _decode_flip(i: int, data: bytes, results, device) -> None:
@@ -629,6 +746,7 @@ def _decode_bucket(key, group, idxs, results, device):
     t0 = time.perf_counter()
     if key[0] == "lc":
         bd = LcStreamBatchDecoder(group, device=device)
+        init_s = time.perf_counter() - t0        # the whole parse + upload
         pcm = bd.decode().cpu()                  # [T, B*lane_block, 1024]
         ch, lb = bd.channels, bd.lane_block
         for j, i in enumerate(idxs):
@@ -636,6 +754,7 @@ def _decode_bucket(key, group, idxs, results, device):
             results[i] = lanes.permute(0, 2, 1).reshape(-1, ch)
     else:
         bd = QwirePipelinedDecoder(group, device=device)
+        init_s = time.perf_counter() - t0        # the profile; parse later
         outs = [o.cpu() for o in bd.decode()]    # [T, L, 2, 2048] each
         lps = bd.out_nl
         for j, i in enumerate(idxs):
@@ -650,7 +769,7 @@ def _decode_bucket(key, group, idxs, results, device):
                     [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1)
     stats = dict(key=key, streams=len(idxs), frames=sum(bd.frame_counts),
                  steps=bd.T if key[0] == "lc" else sum(bd.group_T),
-                 audio_s=bd.audio_seconds(),
+                 audio_s=bd.audio_seconds(), init_s=init_s,
                  wall_s=time.perf_counter() - t0)
     log.info("decode_batch: bucket %s: %d streams, %d frames, %.3f s of "
              "audio in %.6f s", key, stats["streams"], stats["frames"],

@@ -2,18 +2,18 @@
 
 Counterpart: ``heaac_tpu/codec/heaac_graph.py`` — HeaacState/init_state,
 _ps_stage, heaac_frame (is34 0, 1 or 2 = both band modes selected per
-lane, downsampled=0, with the ps_on gate and the PS state freeze),
-init_qwire_carry, heaac_frame_qwire, _qwire_decode_all_coeffs (with the
-device M/S pair butterfly), qwire_scan_decoder,
-qwire_scan_decoder_couple, and the band-mode flip scan
-(_convert_ps_flip, _flip_scan, qwire_scan_decoder_flip[_couple],
-init_qwire_flip_carry); and the AAC-LC scan
-(``heaac_tpu/codec/batch.py`` _make_lc_scan_decoder, couple=False).
-One frame for B lanes: core IMDCT / overlap-add -> QMF analysis -> SBR
-HF reconstruction -> parametric stereo -> QMF synthesis.  The scans are
-Python loops over T frames that round to int16 inside the loop, except
-with AFTER_IMDCT coupling, which mixes the float output of all frames
-first.
+lane; downsampled 0, or 1 for the 32-band synthesis of downsampled SBR;
+with the ps_on gate and the PS state freeze), init_qwire_carry,
+heaac_frame_qwire, _qwire_decode_all_coeffs (with the device M/S pair
+butterfly), qwire_scan_decoder, qwire_scan_decoder_couple, and the
+band-mode flip scan (_convert_ps_flip, _flip_scan,
+qwire_scan_decoder_flip[_couple], init_qwire_flip_carry); and the AAC-LC
+scan (``heaac_tpu/codec/batch.py`` _make_lc_scan_decoder, couple False
+or True).  One frame for B lanes: core IMDCT / overlap-add -> QMF
+analysis -> SBR HF reconstruction -> parametric stereo -> QMF synthesis.
+The scans are Python loops over T frames that round to int16 inside the
+loop, except with AFTER_IMDCT coupling, which mixes the float output of
+all frames first.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import ps, sbr, spec_huff
-from ..ops.qmf import qmf_analysis, qmf_synthesis
+from ..ops.qmf import qmf_analysis, qmf_synthesis, qmf_synthesis_ds
 from . import compact_plan, qwire
 from .core import consts as core_consts
 from .core import core_frame
@@ -57,12 +57,6 @@ def init_state(B: int, device) -> HeaacState:
         for k, s in STATE_SHAPES.items()})
 
 
-def _require_full_rate(downsampled: int) -> None:
-    if downsampled:
-        raise NotImplementedError(
-            "downsampled SBR (32-band synthesis) is not ported")
-
-
 def _select(m, a1, a0):
     """Per lane: a1 where m [B] > 0, else a0 (never a blend, so nothing
     of the branch not taken reaches the result)."""
@@ -84,12 +78,12 @@ def _ps_stage(X, state: HeaacState, ps_plan, is34: int):
 
 def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
                 downsampled: int = 0):
-    """One frame for B mono HE-AACv2 lanes -> (pcm [B,2,2048] f32,
-    new state).  is34 = 2 runs the PS stage in both band modes (K1 at
-    napb 30 and at napb 50) on the same state and plan and takes each
-    lane's result from the mode ``ps_plan["m34"]`` [B] names: the band
-    layouts are fixed per mode, so a lane whose mode flips needs both."""
-    _require_full_rate(downsampled)
+    """One frame for B mono HE-AACv2 lanes -> (pcm [B,2,2048] f32, or
+    [B,2,1024] with ``downsampled``, new state).  is34 = 2 runs the PS
+    stage in both band modes (K1 at napb 30 and at napb 50) on the same
+    state and plan and takes each lane's result from the mode
+    ``ps_plan["m34"]`` [B] names: the band layouts are fixed per mode,
+    so a lane whose mode flips needs both."""
     if is34 not in (0, 1, 2):
         raise ValueError(f"is34 must be 0, 1 or 2, not {is34}")
     m2048, m256, bank = core_consts(state.saved.device)
@@ -128,8 +122,9 @@ def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
         return torch.where(on.reshape((-1,) + (1,) * (new.dim() - 1)), new,
                            old)
 
-    pcm0, v0 = qmf_synthesis(Lx, state.v0)
-    pcm1, v1 = qmf_synthesis(Rx, state.v1)
+    synth = qmf_synthesis_ds if downsampled else qmf_synthesis
+    pcm0, v0 = synth(Lx, state.v0)
+    pcm1, v1 = synth(Rx, state.v1)
     new_state = HeaacState(
         saved=saved, x_hist=x_hist, W_prev=W, Y_prev=y_cur, g_temp=g_temp,
         q_temp=q_temp, v0=v0, v1=v1,
@@ -219,13 +214,14 @@ def to_int16(pcm):
 
 def couple_mix(pcm, etgt, etch, esrc, gains):
     """AFTER_IMDCT coupling at the output rate (qwire_scan_decoder_couple's
-    mix): pcm [T, L, 2, N] f32 gains gains[t, k] * pcm[t, esrc[k], 0] in
-    pcm[t, etgt[k], etch[k]] for each edge k ([K] int edges, gains
-    [T, K]).  Every source is read before the first add, and edges with
-    the same target add up.  Returns pcm, updated in place."""
-    T, L, _, N = pcm.shape
+    mix): pcm [T, L, C, N] f32 (C = 2 sub-channels, 1 for AAC-LC) gains
+    gains[t, k] * pcm[t, esrc[k], 0] in pcm[t, etgt[k], etch[k]] for each
+    edge k ([K] int edges, gains [T, K]).  Every source is read before
+    the first add, and edges with the same target add up.  Returns pcm,
+    updated in place."""
+    T, L, C, N = pcm.shape
     add = gains[:, :, None] * pcm[:, esrc, 0]                  # [T, K, N]
-    pcm.view(T, L * 2, N).index_add_(1, etgt * 2 + etch, add)
+    pcm.view(T, L * C, N).index_add_(1, etgt * C + etch, add)
     return pcm
 
 
@@ -236,11 +232,11 @@ def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
     """qwire_scan_decoder's run: decode every frame's coefficients in one
     parallel pass, then step the frame graph over the T frames.  heap is
     the byte heap, rec_seq [T, L, REC_W] the records -> (carry,
-    pcm int16 [T, L, 2, 2048]).  ``couple`` = (etgt, etch, esrc, gains)
+    pcm int16 [T, L, 2, N]), N = 2048, or 1024 with ``downsampled``
+    (the 32-band synthesis).  ``couple`` = (etgt, etch, esrc, gains)
     tensors on the device (qwire_scan_decoder_couple): the float output
     of every frame is kept, the AFTER_IMDCT coupling mixed in
     (``couple_mix``), and only then rounded."""
-    _require_full_rate(downsampled)
     if is34 not in (0, 1):
         raise ValueError(f"is34 must be 0 or 1, not {is34}: a stream whose "
                          "band mode flips goes through qwire_scan_decode_flip")
@@ -248,7 +244,8 @@ def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
                                               NB, MS, NS, SEC)
     T, L = rec_seq.shape[:2]
     dtype = torch.int16 if couple is None else torch.float32
-    pcm = torch.empty((T, L, 2, 2048), dtype=dtype, device=heap.device)
+    pcm = torch.empty((T, L, 2, 1024 if downsampled else 2048),
+                      dtype=dtype, device=heap.device)
     for t in range(T):
         out, carry = heaac_frame_qwire(coeffs[t], rec_seq[t], heap, carry,
                                        is34, downsampled, rows_pair)
@@ -302,13 +299,13 @@ def qwire_scan_decode_flip(heap, rec_seq, carry, downsampled: int, S: int,
     (heaac_frame with is34 = 2), so K1 runs at napb 30 and at napb 50 in
     every frame.  carry is init_qwire_flip_carry's (..., m34_prev [B]);
     the M/S butterfly is not part of it (MS = 0).  -> (carry,
-    pcm int16 [T, L, 2, 2048])."""
-    _require_full_rate(downsampled)
+    pcm int16 [T, L, 2, N]), N as in qwire_scan_decode."""
     heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S, rate_idx,
                                               NB, 0, NS, SEC)
     T, L = rec_seq.shape[:2]
     dtype = torch.int16 if couple is None else torch.float32
-    pcm = torch.empty((T, L, 2, 2048), dtype=dtype, device=heap.device)
+    pcm = torch.empty((T, L, 2, 1024 if downsampled else 2048),
+                      dtype=dtype, device=heap.device)
     for t in range(T):
         state, ph, qc, m34_prev = carry
         core_meta, plan, pc, qc2 = qwire.expand_frame(heap, rec_seq[t], qc,
@@ -333,17 +330,26 @@ def qwire_scan_decode_flip(heap, rec_seq, carry, downsampled: int, S: int,
     return carry, pcm
 
 
-def lc_scan_decode(core_seq: dict, saved):
+def lc_scan_decode(core_seq: dict, saved, couple=None):
     """The AAC-LC whole-stream scan: core_seq coeffs [T, L, 1024] f32 and
     ws / wsp / kbd / kbdp [T, L] int, saved [L, 512] -> (saved,
-    pcm int16 [T, L, 1024])."""
+    pcm int16 [T, L, 1024]).  ``couple`` = (etgt, esrc, gains) tensors
+    on the device ([K] target and source lanes, [T, K] gains;
+    _make_lc_scan_decoder(couple=True)): the float output of every frame
+    is kept, mixed by ``couple_mix`` (gains[t, k] * pcm[t, esrc[k]] into
+    pcm[t, etgt[k]]), and only then rounded."""
     m2048, m256, bank = core_consts(saved.device)
     coeffs = core_seq["coeffs"]
     T, L = coeffs.shape[:2]
-    pcm = torch.empty((T, L, 1024), dtype=torch.int16, device=saved.device)
+    dtype = torch.int16 if couple is None else torch.float32
+    pcm = torch.empty((T, L, 1024), dtype=dtype, device=saved.device)
     for t in range(T):
         out, saved = core_frame(coeffs[t], saved, core_seq["ws"][t],
                                 core_seq["wsp"][t], core_seq["kbd"][t],
                                 core_seq["kbdp"][t], m2048, m256, bank)
-        pcm[t] = to_int16(out)
+        pcm[t] = out if couple is not None else to_int16(out)
+    if couple is not None:
+        etgt, esrc, gains = couple
+        pcm = to_int16(couple_mix(pcm[:, :, None], etgt, 0, esrc, gains)[
+            :, :, 0])
     return saved, pcm

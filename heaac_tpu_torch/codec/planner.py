@@ -1,16 +1,19 @@
 """The Python qwire planner: one stream -> per-frame qwire lanes (host).
 
 Port copy of ``heaac_tpu/codec/batch.py``: _host_couple_and_tns
-(23-43), _point3_edges_sub (87-124), _couple_series (125-139),
-_align_union_layout (140-175), QwirePlanningDecoder (413-655) and
-parse_stream_qwire (657-727); names as there.  The planner parses with
+(23-43), _point3_edges (52-86), _point3_edges_sub (87-124),
+_couple_series (125-139), _align_union_layout (140-175),
+QwirePlanningDecoder (413-655), parse_stream_qwire (657-727) and
+LcPlanningDecoder (1535-1567); names as there.  The planner parses with
 the Python element parser (``codec/decoder.py``) and writes each
 frame-lane with the host writers of ``codec/qwire_host.py``: raw-bits
 spectral blocks where a lane is eligible, raw-f32 tokens otherwise, SBR
 and PS side info as integer codes.  It is the batched decoder's
 fallback for streams the native parser refuses, and the only parse that
 reports a stream's per-frame PS band mode (``is34_out``) and its
-downsampled-SBR flag.
+downsampled-SBR flag (from an AudioSpecificConfig, ``asc``).  The LC
+planner (``LcPlanningDecoder``) is the AAC-LC counterpart: per frame
+the core plan of every lane, and AFTER_IMDCT coupling edges.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ from .decoder import Decoder
 
 def _host_couple_and_tns(dec) -> None:
     """Dependent channel coupling + TNS in reference order (host side,
-    aacdec.c:1870-1898 stages 0/1).  AFTER_IMDCT (point 3) coupling
-    mixes decoded time signals: the qwire path mixes it on the device
-    over extra CCE lanes (``_point3_edges_sub``); the JAX package's
+    aacdec.c:1870-1898 stages 0/1), for both planners.  AFTER_IMDCT
+    (point 3) coupling mixes decoded time signals: the qwire and LC
+    paths mix it on the device over extra CCE lanes
+    (``_point3_edges_sub``, ``_point3_edges``); the JAX package's
     ``raise_point3`` branch serves only its dense-plan planner, which
     is not ported."""
     dec._apply_dependent_coupling_stage(0, before_tns=True)
@@ -42,6 +46,42 @@ def _host_couple_and_tns(dec) -> None:
             syn.apply_tns(cd.coeffs, cd)
             cd.tns = syn.TnsData()
     dec._apply_dependent_coupling_stage(1, before_tns=False)
+
+
+def _point3_edges(dec, lane_index_of) -> list:
+    """This frame's AFTER_IMDCT coupling edges [(tgt_lane, src_lane,
+    gain)] over the LC planner's lanes (``lane_index_of``: (etype, eid,
+    ch) -> lane), mirroring decoder._apply_independent_coupling
+    (aacdec.c:1849-1862)."""
+    edges = []
+    for key, el in dec.elements.items():
+        if key[0] != T.TYPE_CCE or el.coup is None \
+                or not el.present_this_frame \
+                or el.coup.coupling_point != 3:
+            continue
+        src = lane_index_of.get((T.TYPE_CCE, key[1], 0))
+        if src is None:
+            continue
+        coup = el.coup
+        index = 0
+        for c in range(coup.num_coupled + 1):
+            tkey = (coup.type[c], coup.id_select[c])
+            ch_sel = coup.ch_select[c]
+            if dec.elements.get(tkey) is None:
+                index += 1 + (ch_sel == 3)
+                continue
+            if ch_sel != 1:
+                li = lane_index_of.get((tkey[0], tkey[1], 0))
+                if li is not None:
+                    edges.append((li, src, float(coup.gain[index][0])))
+                if ch_sel != 0:
+                    index += 1
+            if ch_sel != 2:
+                li = lane_index_of.get((tkey[0], tkey[1], 1))
+                if li is not None:
+                    edges.append((li, src, float(coup.gain[index][0])))
+                index += 1
+    return edges
 
 
 def _point3_edges_sub(dec, qpos) -> list:
@@ -433,3 +473,36 @@ def parse_stream_qwire(data: bytes, asc: bytes | None = None,
         info_out["couple"] = _couple_series(dec.frames_couple)
     return (dec.frames_q, dec.sample_rate, nl,
             dec.ps_is34 or 0, dec.downsampled)
+
+
+class LcPlanningDecoder(Decoder):
+    """Parses an AAC-LC stream into per-frame core plans, one lane per
+    output channel, then one per coupling channel element.  Per frame:
+    ``frames_core`` (coeffs [lanes, 1024] f32, ws / wsp / kbd / kbdp
+    [lanes] int32) and ``frames_couple``, the AFTER_IMDCT edges [(tgt_lane,
+    src_lane, gain)] the device mixes after the scan."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.frames_core = []
+        self.frames_couple = []
+
+    def _spectral_to_sample(self, present):
+        _host_couple_and_tns(self)
+        all_lanes = self.lanes + self.cce_lanes
+        lane_index_of = {(ln.elem_type, ln.elem_id, ln.ch): i
+                         for i, ln in enumerate(all_lanes)}
+        self.frames_couple.append(_point3_edges(self, lane_index_of))
+        lanes = [self.elements[(ln.elem_type, ln.elem_id)].cur[ln.ch]
+                 for ln in all_lanes]
+        zeros = np.zeros(1024, np.float32)
+        self.frames_core.append(dict(
+            coeffs=np.stack([cd.coeffs if cd.coeffs is not None else zeros
+                             for cd in lanes]),
+            ws=np.array([cd.ics.window_sequence for cd in lanes], np.int32),
+            wsp=np.array([cd.ics.window_sequence_prev for cd in lanes],
+                         np.int32),
+            kbd=np.array([cd.ics.use_kb_window for cd in lanes], np.int32),
+            kbdp=np.array([cd.ics.use_kb_window_prev for cd in lanes],
+                          np.int32)))
+        return np.zeros((0, 1), np.int16)

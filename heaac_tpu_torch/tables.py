@@ -294,6 +294,33 @@ def qmf_synthesis_consts():
     return A, B2, win.reshape(10, 64)
 
 
+QMF_SYN_TAPS_DS = ((0, 0), (1, 32), (2, 0), (3, 32), (4, 0), (5, 32),
+                   (6, 0), (7, 32), (8, 0), (9, 32))
+
+
+@functools.cache
+def qmf_synthesis_consts_ds():
+    """(A [64,64], B2 [64,64], win [10,32]) of the downsampled (32-band)
+    synthesis — qmf_jax._synthesis_consts_ds (aacsbr.c:1192-1203): q =
+    [-X_re[:32], X_im[31::-1]], buf = imdct64(q, 1/64), v[n] =
+    buf[63-2n], v[63-n] = -buf[62-2n]; 64-sample v-blocks, 32-sample
+    window taps (QMF_SYN_TAPS_DS) from the qmf_window_ds prototype."""
+    m_syn = imdct_half_matrix(64, 1.0 / 64)
+    win = qmf_window_ds()
+    E = np.zeros((64, 64), np.float32)      # X_re -> q
+    F = np.zeros((64, 64), np.float32)      # X_im -> q
+    for k in range(32):
+        E[k, k] = -1.0
+        F[31 - k, 32 + k] = 1.0
+    P = np.zeros((64, 64), np.float32)      # buf -> v
+    for n in range(32):
+        P[63 - 2 * n, n] = 1.0
+        P[62 - 2 * n, 63 - n] = -1.0
+    A = (E @ m_syn @ P).astype(np.float32)
+    B2 = (F @ m_syn @ P).astype(np.float32)
+    return A, B2, win.reshape(10, 32)
+
+
 # ---------------------------------------------------------------------------
 # Parametric stereo (ps_tables.py, ps_jax._consts)
 # ---------------------------------------------------------------------------

@@ -67,6 +67,10 @@ def test_core_and_qmf_consts():
     same(B2, jB2)
     same(win, jwin)
     assert list(TB.QMF_SYN_TAPS) == list(jtaps)
+    *consts, jtaps = qmf_jax._synthesis_consts_ds()
+    for a, b in zip(TB.qmf_synthesis_consts_ds(), consts):
+        same(a, b)
+    assert list(TB.QMF_SYN_TAPS_DS) == list(jtaps)
     same(psbr.H_SMOOTH, H_SMOOTH)
     assert TB.ENVELOPE_ADJUSTMENT_OFFSET == \
         sbr_syntax.ENVELOPE_ADJUSTMENT_OFFSET

@@ -5,14 +5,17 @@ the IMDCT or before TNS, AAC-LC and a buffer with no sync word,
 interleaved) against the committed JAX golden
 (tests/data/decode_batch_golden_jax.npz, written by that tool; JAX does
 not run here), within 2 int16 LSB, each output in its input's place;
-streams the port cannot take raise NotImplementedError naming them; the
-ADTS splitter equals the JAX package's."""
+streams the port cannot take (what the JAX package decodes with its
+single-stream decoder) raise NotImplementedError naming them, also when
+a flip stream's flip decode fails; the ADTS splitter equals the JAX
+package's."""
 import numpy as np
 import pytest
 import torch
 
 from heaac_tpu.bitstream.adts import split_adts_stream as jax_split
 from heaac_tpu_torch import decode_batch
+from heaac_tpu_torch.codec import batch
 from heaac_tpu_torch.host import split_adts_stream
 from test_torch_common import (  # noqa: F401 (autouse fixture)
     golden_tool, release_jax_memory, streams_of)
@@ -49,22 +52,39 @@ def test_decode_batch_cpu_matches_golden():
         assert np.abs(got - want).max() <= TOL_LSB, name
 
 
-def _lc_cce_stream(frames: int) -> bytes:
-    """An AAC-LC stream in a program-config layout with a coupling channel
-    element each frame: the port's LC path takes channel configurations
-    1-7 only (the JAX package parses this one with its LC Python
-    planner, which is not ported)."""
-    from heaac_tpu.io.heaac_testgen import splice_cce_into_lc
-    return splice_cce_into_lc(_head(streams_of("lc", 1)[0], frames),
-                              coupling_point="after")
-
-
 def test_decode_batch_names_the_stream_it_cannot_take():
+    """A 20-band stream whose frame 0 has a corrupted byte: the native
+    probe refuses it, the Python prober cannot parse frame 0 (an AAC-LC
+    bucket), and the LC planner fails on it; the JAX package decodes it
+    with its single-stream decoder (its golden records the fallback),
+    which is not ported."""
+    tool = golden_tool()
+    with np.load(tool.LC_GOLDEN) as z:
+        assert int(z["single_he20_f0_0"]) == 1
     streams = [b"no sync word here", _head(streams_of("he20", 1)[0], 4),
-               _lc_cce_stream(4)]
+               tool.corrupted("he20_f0_0")]
     with pytest.raises(NotImplementedError, match=r"^stream 2:") as ei:
         decode_batch(streams, device="cpu")
     assert ei.value.__cause__ is not None
+
+
+def test_failed_flip_decode_names_the_stream(monkeypatch):
+    """A flip stream fails its batched decode on the band-mode flip; when
+    its flip decode fails too, decode_batch raises NotImplementedError
+    naming the stream, chained to that failure and not raised while
+    handling it."""
+    cause = RuntimeError("flip decode failed")
+
+    def fail(*a, **kw):
+        raise cause
+
+    monkeypatch.setattr(batch, "decode_qwire_flip_stream", fail)
+    streams = [_head(streams_of("he20", 1)[0], 4),
+               _head(streams_of("flip", 4)[3], 4)]
+    with pytest.raises(NotImplementedError, match=r"^stream 1:") as ei:
+        decode_batch(streams, device="cpu")
+    assert ei.value.__cause__ is cause
+    assert ei.value.__suppress_context__ and ei.value.__context__ is None
 
 
 @pytest.mark.parametrize("case", ["clean", "leading_garbage",

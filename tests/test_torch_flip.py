@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from heaac_tpu.codec import heaac_graph as jg
 from heaac_tpu.ops import ps_jax
 from heaac_tpu_torch import decode_batch
-from heaac_tpu_torch.codec import heaac_graph, qwire
+from heaac_tpu_torch.codec import batch, heaac_graph, qwire
 from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
                                          decode_qwire_flip_stream,
                                          pack_planner_frames)
@@ -253,9 +253,17 @@ def test_pipelined_decoder_planner_fallback_matches_native(kind, caplog):
     assert np.abs(got.astype(np.int32) - native).max() <= TOL_LSB
 
 
-def test_downsampled_sbr_raises():
+def test_downsampled_sbr_raises(monkeypatch):
+    """ADTS never signals downsampled SBR (the flip and plain scans take
+    it from an AudioSpecificConfig: tests/test_torch_downsampled.py), so
+    the batched decoder refuses a planner parse that reports it, here
+    made to."""
+    streams = [_head(streams_of("he20", 1)[0], 2)]
+    dec = QwirePipelinedDecoder(streams, group_streams=1, max_frames=2,
+                                device="cpu")
+    dec.parser.parse_qwire = lambda *a: -1      # the planner parses it
+    real = batch.parse_stream_qwire
+    monkeypatch.setattr(batch, "parse_stream_qwire",
+                        lambda *a, **kw: real(*a, **kw)[:4] + (1,))
     with pytest.raises(NotImplementedError, match="downsampled SBR"):
-        heaac_graph.qwire_scan_decode_flip(
-            torch.zeros(64, dtype=torch.long),
-            torch.zeros((1, 1, 4), dtype=torch.long),
-            heaac_graph.init_qwire_flip_carry(1, "cpu"), 1, 64)
+        dec.decode()

@@ -3,7 +3,10 @@ one): kernel K1 against its plain version at the main path's shapes, a
 short main-path decode on the card against the port's CPU decode, the
 same for stereo HE-AAC v1 (device M/S, coupled SBR rows),
 decode_batch on the card against its CPU run for a stream of each kind,
-and a stream whose PS band mode flips through the flip scan.
+a stream whose PS band mode flips through the flip scan, AAC-LC streams
+with a coupling channel (the LC planner and the coupled LC scan) beside
+an HE stream the native probe refuses (the Python prober and profile
+parse), and the downsampled-SBR scan.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -15,11 +18,14 @@ import pytest
 import torch
 
 from heaac_tpu_torch import decode_batch
+from heaac_tpu_torch.codec import heaac_graph
 from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
-                                         decode_qwire_flip_stream)
-from heaac_tpu_torch.host import split_adts_stream
+                                         decode_qwire_flip_stream,
+                                         pack_planner_frames)
+from heaac_tpu_torch.codec.planner import parse_stream_qwire
+from heaac_tpu_torch.host import R_W1, spec_static_args, split_adts_stream
 from heaac_tpu_torch.ops import ps_decorrelate as K
-from test_torch_common import bench_streams, streams_of
+from test_torch_common import bench_streams, golden_tool, streams_of
 
 pytestmark = pytest.mark.gpu
 NAMES = ("power", "in_re", "in_im", "trans", "ap", "ag", "qf")
@@ -107,3 +113,53 @@ def test_flip_stream_on_card_matches_cpu(cuda):
     assert gpu.shape == cpu.shape == (12 * 2048, 2)
     assert int(cpu.abs().max()) > 1000
     assert int((gpu.int() - cpu.int()).abs().max()) <= 2
+
+
+def test_lc_planner_and_prober_on_card_match_cpu(cuda):
+    """Two AAC-LC + CCE streams (after the IMDCT, before TNS) and a
+    20-band stream with a corrupted frame 1 (the Python prober, then the
+    Python profile parse), 8 frames each: within 2 LSB of the CPU, K1
+    once per frame of the HE bucket."""
+    tool = golden_tool()
+    streams = [b"".join(split_adts_stream(tool.named_stream(name))[:8])
+               for name in ("he20_f1_0", "lc_cce_after_0",
+                            "lc_cce_before_1")]
+    before = dict(K.launches)
+    gpu = decode_batch(streams)
+    assert {napb: K.launches[napb] - before[napb] for napb in before} == {
+        30: 8, 50: 0}
+    cpu = decode_batch(streams, device="cpu")
+    for g, c, shape in zip(gpu, cpu, ((8 * 2048, 2), (8 * 1024, 1),
+                                      (8 * 1024, 1))):
+        assert tuple(g.shape) == tuple(c.shape) == shape
+        assert int(c.abs().max()) > 1000
+        assert int((g.int() - c.int()).abs().max()) <= 2
+
+
+def test_downsampled_scan_on_card_matches_cpu(cuda):
+    """Downsampled streams 0-1 parsed with their AudioSpecificConfig, 8
+    frames through qwire_scan_decode(downsampled=1): 1024 samples a
+    frame, K1 once per frame, within 2 LSB of the CPU."""
+    data, asc = golden_tool().ds_streams()
+    frames = [parse_stream_qwire(d, asc=asc, max_frames=8)[0]
+              for d in data[:2]]
+    heap, _, recs = pack_planner_frames(frames, 1, 8)
+    sa = spec_static_args(recs)
+    S = -(-max(64, int((recs[..., R_W1] & 0xFFFF).max())) // 64) * 64
+    args = (0, 1, S, 6, sa["NB"], 0, sa["NS"], sa["SEC"])
+
+    def run(dev):
+        carry = heaac_graph.init_qwire_carry(2, dev)
+        _, pcm = heaac_graph.qwire_scan_decode(
+            torch.from_numpy(heap).to(dev), torch.from_numpy(recs).to(dev),
+            carry, *args)
+        return pcm.cpu().numpy()
+
+    before = dict(K.launches)
+    gpu = run(cuda)
+    assert {napb: K.launches[napb] - before[napb] for napb in before} == {
+        30: 8, 50: 0}
+    cpu = run("cpu")
+    assert gpu.shape == cpu.shape == (8, 2, 2, 1024)
+    assert np.abs(cpu).max() > 1000
+    assert np.abs(gpu.astype(np.int32) - cpu).max() <= 2

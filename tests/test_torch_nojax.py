@@ -6,7 +6,10 @@ with a coupling channel applied after the IMDCT (4 frames each), then on
 two streams whose PS band mode flips (the Python planner and the flip
 scan): flip stream 3 (4 frames, a flip at frame 2) and the flip +
 coupling-channel stream (8 frames, a flip at frame 6), against the JAX
-golden (tests/data/flip_golden_jax.npz)."""
+golden (tests/data/flip_golden_jax.npz); then decode_batch on an AAC-LC
+stream with a coupling channel (the LC planner, 4 frames) and the
+downsampled scan on a downsampled-SBR stream parsed with its
+AudioSpecificConfig (4 frames), against their JAX goldens."""
 import os
 import subprocess
 import sys
@@ -45,6 +48,33 @@ fdiff = [int(np.abs(o.numpy().astype(np.int32)
                     - fgold["pcm_" + name][:len(o)]).max())
          for o, name in zip(fouts, ("flip_3", "flip_cce_0"))]
 print("FLIP", [tuple(o.shape) for o in fouts], max(fdiff) <= 2)
+lc = b"".join(split_adts_stream(
+    open(REPO + "/tests/data/lc_cce_after_0.aac", "rb").read())[:4])
+lout = decode_batch([lc], device="cpu")[0]
+lgold = np.load(REPO + "/tests/data/lc_batch_golden_jax.npz")
+k = list(lgold["names"]).index("lc_cce_after_0")
+ldiff = int(np.abs(lout.numpy().astype(np.int32)
+                   - lgold[f"pcm_{k}"][:len(lout)]).max())
+import torch
+from heaac_tpu_torch.codec import heaac_graph
+from heaac_tpu_torch.codec.batch import pack_planner_frames
+from heaac_tpu_torch.codec.planner import parse_stream_qwire
+from heaac_tpu_torch.host import R_W1, spec_static_args
+asc = open(REPO + "/tests/data/heaac_ds.asc", "rb").read()
+ds = open(REPO + "/tests/data/heaac_ds_0.aac", "rb").read()
+frames, _, _, _, dsflag = parse_stream_qwire(ds, asc=asc, max_frames=4)
+heap, _, recs = pack_planner_frames([frames], 1, 4)
+sa = spec_static_args(recs)
+S = -(-max(64, int((recs[..., R_W1] & 0xFFFF).max())) // 64) * 64
+_, dpcm = heaac_graph.qwire_scan_decode(
+    torch.from_numpy(heap), torch.from_numpy(recs),
+    heaac_graph.init_qwire_carry(1, "cpu"), 0, dsflag, S, 6, sa["NB"], 0,
+    sa["NS"], sa["SEC"])
+dgold = np.load(REPO + "/tests/data/downsampled_golden_jax.npz")["pcm"]
+ddiff = int(np.abs(dpcm.numpy()[:, 0].astype(np.int32)
+                   - dgold[:4, 0]).max())
+print("LCDS", tuple(lout.shape), tuple(dpcm.shape),
+      max(ldiff, ddiff) <= 2 and int(dpcm.abs().max()) > 1000)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -67,3 +97,5 @@ def test_port_decodes_without_jax():
                      "[True, True, True, True]"), batch
     flip = [x for x in r.stdout.splitlines() if x.startswith("FLIP")][0]
     assert flip == "FLIP [(8192, 2), (16384, 2)] True", flip
+    lcds = [x for x in r.stdout.splitlines() if x.startswith("LCDS")][0]
+    assert lcds == "LCDS (4096, 1) (4, 1, 2, 1024) True", lcds

@@ -3,9 +3,9 @@
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir [name ...]]
 
-Writes five files into tests/data (or out_dir), all from the JAX
-package on the CPU; with names (scan, batch, stereo, qwire, flip) only
-those:
+Writes eight files into tests/data (or out_dir), all from the JAX
+package on the CPU; with names (scan, batch, stereo, qwire, flip, lc,
+probe, ds) only those:
 
   heaac_v2_golden_jax.npz      benchdata/heaac_bench_stream_{0,1}.aac
       parsed by its QwirePipelinedDecoder and decoded by its qwire scan,
@@ -51,16 +51,43 @@ those:
       carry after the first FLIP_CARRY_FRAMES frames of flip stream 1,
       whose band mode flips at frame 9 (``scan_carry/...``, with the
       ``scan_heap``, ``scan_recs`` and ``scan_static`` it ran on).
+  lc_batch_golden_jax.npz  its ``decode_batch`` over ``lc_streams()``:
+      the AAC-LC + CCE streams (tests/data/lc_cce_{after,before}_{0..3}
+      .aac, its LC planner and coupled LC scan) and two 20-band streams
+      whose frame 1 has a corrupted byte (the native probe refuses them,
+      the Python prober buckets them, and the first is stream 0 of its
+      bucket: the Python profile parse), interleaved: ``names``,
+      ``pcm_k`` (first FRAMES frames) and ``n_k`` as in the batch golden;
+      and, for each ``UNPORTED`` stream, ``single_{name}``: 1 where its
+      ``decode_batch`` fell back to the single-stream decoder (its log
+      line says so).
+  prober_golden_jax.npz  the Python prober of its ``decode_batch``
+      (batch.py:1791-1801: ``Decoder.decode_frame`` of the first frame;
+      any exception is (False, False)) over every committed stream
+      (``probe_streams()``: benchdata/*.aac, tests/data/*.aac) and the
+      ``CORRUPT`` variants: ``names``, ``sbr`` and ``is34`` (int).
+  downsampled_golden_jax.npz  tests/data/heaac_ds_{0..3}.aac with the
+      AudioSpecificConfig tests/data/heaac_ds.asc, first FRAMES frames:
+      its ``parse_stream_qwire(asc=)`` packed into a heap and records
+      as the port packs planner frames (``heap``, ``recs``, ``static``)
+      and decoded by
+      ``qwire_scan_decoder(0, 1, ...)`` in two halves (``pcm`` int16
+      [FRAMES, 4, 2, 1024]; ``carry_mid/...``, ``carry_end/...``); and
+      the max LSB between that and its dense ``StreamBatchDecoder(asc=)``
+      over the same frames (``dense_lsb``).
 
-The 34-band, stereo, CCE and flip streams come from
-tools/make_torch_streams.py.
+The 34-band, stereo, CCE, flip, LC + CCE and downsampled streams come
+from tools/make_torch_streams.py.
 chip_smoke.py holds the port's GPU output to the first two files;
 tests/test_torch_golden.py regenerates the first and checks it,
 tests/test_torch_decode_batch.py holds the port's CPU decode_batch to
 the second and tests/test_torch_stereo.py its CPU expand_frame to the
 third; tests/test_torch_qwire.py holds its expand_frame to the fourth;
 tests/test_torch_flip.py and chip_smoke.py phase 7 hold the flip path
-to the fifth.
+to the fifth; tests/test_torch_lc_planner.py and chip_smoke.py phase 8
+hold the LC planner, the prober and the profile parse to the sixth and
+seventh, tests/test_torch_downsampled.py and phase 8 the downsampled
+scan to the eighth.
 """
 import os
 import sys
@@ -104,6 +131,29 @@ BATCH_LIST = (
     ("cce_after_1", "tests/data/heaac_cce_after_1.aac"),
 )
 GARBAGE = bytes(range(0x20, 0x7F)) * 4    # printable bytes: no 0xFF
+LC_GOLDEN = os.path.join(DATA, "lc_batch_golden_jax.npz")
+PROBE_GOLDEN = os.path.join(DATA, "prober_golden_jax.npz")
+DS_GOLDEN = os.path.join(DATA, "downsampled_golden_jax.npz")
+DS_FILE = "tests/data/heaac_ds_{}.aac"
+DS_ASC = "tests/data/heaac_ds.asc"
+DS_STREAMS = 4
+# corrupted streams: name -> (file, frame, byte of that frame XOR 0xFF);
+# the native probe refuses each.  Frame 1: the Python prober parses frame
+# 0 and buckets the stream HE.  Frame 0: its parse fails, so (False,
+# False), the AAC-LC bucket, where the JAX package's LC planner fails
+# too and its decode_batch falls back to the single-stream decoder.
+CORRUPT = {
+    "he20_f1_0": ("benchdata/heaac_bench_stream_0.aac", 1, 9),
+    "he20_f1_1": ("benchdata/heaac_bench_stream_1.aac", 1, 9),
+    "he20_f0_0": ("benchdata/heaac_bench_stream_0.aac", 0, 61),
+    "he34_f0_0": ("tests/data/heaac_v2_34band_0.aac", 0, 57),
+    "lc_cce_f1_0": ("tests/data/lc_cce_after_0.aac", 1, 9),
+}
+LC_LIST = ("he20_f1_0", "lc_cce_after_0", "lc_cce_before_0",
+           "lc_cce_after_1", "lc_cce_before_1", "he20_f1_1",
+           "lc_cce_after_2", "lc_cce_before_2", "lc_cce_after_3",
+           "lc_cce_before_3")
+UNPORTED = ("he20_f0_0",)
 
 
 def batch_streams(repo: str = REPO) -> list:
@@ -412,6 +462,187 @@ def batch_golden() -> dict:
     return z
 
 
+def corrupted(name: str, repo: str = REPO) -> bytes:
+    """A CORRUPT stream: its file with one byte of one frame inverted."""
+    rel, frame, pos = CORRUPT[name]
+    with open(os.path.join(repo, rel), "rb") as f:
+        data = bytearray(f.read())
+    off = 0
+    for _ in range(frame):                    # ADTS frame_length field
+        off += ((data[off + 3] & 3) << 11) | (data[off + 4] << 3) \
+            | (data[off + 5] >> 5)
+    data[off + pos] ^= 0xFF
+    return bytes(data)
+
+
+def named_stream(name: str, repo: str = REPO) -> bytes:
+    """A stream of LC_LIST: a CORRUPT one, or tests/data/{name}.aac."""
+    if name in CORRUPT:
+        return corrupted(name, repo)
+    with open(os.path.join(repo, "tests", "data", f"{name}.aac"), "rb") as f:
+        return f.read()
+
+
+def lc_streams(repo: str = REPO) -> list:
+    """LC_LIST as [(name, bytes)]."""
+    return [(name, named_stream(name, repo)) for name in LC_LIST]
+
+
+def lc_golden() -> dict:
+    import logging
+    sys.path.insert(0, REPO)
+    from heaac_tpu.codec.batch import decode_batch
+    named = lc_streams()
+    outs = decode_batch([data for _, data in named])
+    z = {"names": np.array([name for name, _ in named])}
+    for k, ((name, _), pcm) in enumerate(zip(named, outs)):
+        pcm = np.asarray(pcm).astype(np.int16)
+        z[f"pcm_{k}"] = pcm[:FRAMES * 1024 * (1 + name.startswith("he"))]
+        z[f"n_{k}"] = np.int64(pcm.shape[0])
+
+    class Fallbacks(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.seen = False
+
+        def emit(self, record):
+            self.seen |= "fell back to the single-stream decoder" \
+                in record.getMessage()
+
+    logger = logging.getLogger("heaac_tpu")
+    for name in UNPORTED:
+        h = Fallbacks()
+        logger.addHandler(h)
+        try:
+            decode_batch([named_stream(name)])
+        finally:
+            logger.removeHandler(h)
+        z[f"single_{name}"] = np.int64(h.seen)
+    return z
+
+
+def write_lc_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(LC_GOLDEN))
+    z = lc_golden()
+    np.savez_compressed(path, **z)
+    print(f"wrote {path}: " + ", ".join(
+        f"{name} {z[f'pcm_{k}'].shape} of {int(z[f'n_{k}'])}"
+        for k, name in enumerate(z["names"])) + "; single-stream fallback: "
+        + ", ".join(f"{n} {int(z[f'single_{n}'])}" for n in UNPORTED))
+
+
+def probe_streams(repo: str = REPO) -> list:
+    """Every committed stream and the CORRUPT ones as [(name, bytes)]:
+    names are paths relative to the repo, or CORRUPT keys."""
+    import glob
+    out = []
+    for pat in ("benchdata/*.aac", "tests/data/*.aac"):
+        for path in sorted(glob.glob(os.path.join(repo, pat))):
+            with open(path, "rb") as f:
+                out.append((os.path.relpath(path, repo), f.read()))
+    return out + [(name, corrupted(name, repo)) for name in CORRUPT]
+
+
+def jax_python_probe(data: bytes) -> tuple:
+    """The JAX decode_batch's Python probe (batch.py:1791-1801), as
+    written there."""
+    from heaac_tpu.bitstream.adts import split_adts_stream
+    from heaac_tpu.codec.decoder import Decoder
+    probe = Decoder(adts_probe=data[:7])
+    first = split_adts_stream(data)[0]
+    try:
+        probe.decode_frame(first)
+        sbr_on = probe.m4ac.sbr == 1
+        ps34 = any(el.sbr is not None and el.sbr.ps is not None
+                   and el.sbr.ps.is34bands
+                   for el in probe.elements.values())
+    except Exception:
+        sbr_on, ps34 = False, False
+    return sbr_on, ps34
+
+
+def write_probe_golden(out: str) -> None:
+    sys.path.insert(0, REPO)
+    path = os.path.join(out, os.path.basename(PROBE_GOLDEN))
+    named = probe_streams()
+    got = [jax_python_probe(data) for _, data in named]
+    np.savez_compressed(
+        path, names=np.array([name for name, _ in named]),
+        sbr=np.array([int(a) for a, _ in got]),
+        is34=np.array([int(b) for _, b in got]))
+    print(f"wrote {path}: {len(named)} streams, " + ", ".join(
+        f"{name} {tuple(map(int, g))}" for (name, _), g in zip(named, got)
+        if name in CORRUPT))
+
+
+def ds_streams(repo: str = REPO) -> tuple:
+    """(the downsampled streams 0..DS_STREAMS-1 as bytes, their ASC)."""
+    with open(os.path.join(repo, DS_ASC), "rb") as f:
+        asc = f.read()
+    return [open(os.path.join(repo, DS_FILE.format(i)), "rb").read()
+            for i in range(DS_STREAMS)], asc
+
+
+def ds_golden() -> dict:
+    sys.path.insert(0, REPO)
+    import jax.numpy as jnp
+    from heaac_tpu.codec import heaac_graph as jg
+    from heaac_tpu.codec import qwire
+    from heaac_tpu.codec.batch import StreamBatchDecoder, parse_stream_qwire
+    data, asc = ds_streams()
+    # packed as the port's pack_planner_frames packs: the silence lane's
+    # payload first, then each stream's frames in order
+    sil_payload, _ = qwire.silence_lane()
+    heap = bytearray(sil_payload)
+    recs = np.zeros((FRAMES, len(data), qwire.REC_W), np.int32)
+    for k, d in enumerate(data):
+        frames_q, rate, nl, is34, ds = parse_stream_qwire(
+            d, asc=asc, max_frames=FRAMES)
+        if (rate, nl, is34, ds, len(frames_q)) != (24000, 1, 0, 1, FRAMES):
+            raise SystemExit(f"downsampled stream {k}: {rate} Hz, {nl} "
+                             f"lanes, is34 {is34}, ds {ds}")
+        for t, fr in enumerate(frames_q):
+            payload, rec = fr[0]
+            recs[t, k] = rec
+            recs[t, k, qwire.R_TOKOFF] = len(heap)
+            heap += payload
+    heap += bytes(-len(heap) % 4 + 4096)
+    heap = np.frombuffer(bytes(heap), np.uint8)
+    S = -(-max(64, int((recs[..., qwire.R_W1] & 0xFFFF).max())) // 64) * 64
+    sa = qwire.spec_static_args(recs)
+    rate_idx = 6
+    static = (0, 1, S, rate_idx, sa["NB"], sa["MS"], sa["NS"], sa["SEC"],
+              qwire.rows_pair_static(heap, recs))
+    run = jg.qwire_scan_decoder(*static)
+    carry = jg.init_qwire_carry(len(data))
+    pcm, carries = [], []
+    for half in (recs[:HALF], recs[HALF:]):
+        carry, out = run(jnp.asarray(heap.view(np.float32)),
+                         jnp.asarray(half.view(np.float32)), carry)
+        pcm.append(np.asarray(out))
+        carries.append(_numpy_tree(carry))
+    pcm = np.concatenate(pcm).astype(np.int16)
+    dense = np.asarray(StreamBatchDecoder(data, asc=asc,
+                                          max_frames=FRAMES).decode())
+    lsb = int(np.abs(pcm.astype(np.int32) - dense[:, :len(data)]).max())
+    return dict(pcm=pcm, heap=heap, recs=recs, static=np.array(static),
+                dense_lsb=np.int64(lsb), carry_mid=carries[0],
+                carry_end=carries[1])
+
+
+def write_ds_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(DS_GOLDEN))
+    g = ds_golden()
+    np.savez_compressed(
+        path, **{k: g[k] for k in ("pcm", "heap", "recs", "static",
+                                   "dense_lsb")},
+        **flatten_tree(g["carry_mid"], "carry_mid"),
+        **flatten_tree(g["carry_end"], "carry_end"))
+    print(f"wrote {path}: pcm {g['pcm'].shape}, static {g['static']}, the "
+          f"carries after frames {HALF} and {FRAMES}; qwire vs dense "
+          f"{int(g['dense_lsb'])} LSB")
+
+
 def write_scan_golden(out: str) -> None:
     path = os.path.join(out, os.path.basename(GOLDEN))
     g = golden_scan()
@@ -433,7 +664,8 @@ def write_batch_golden(out: str) -> None:
 
 WRITERS = {"scan": write_scan_golden, "batch": write_batch_golden,
            "stereo": write_stereo_golden, "qwire": write_qwire_golden,
-           "flip": write_flip_golden}
+           "flip": write_flip_golden, "lc": write_lc_golden,
+           "probe": write_probe_golden, "ds": write_ds_golden}
 
 
 def main() -> None:

@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """Write the test streams of the PyTorch port.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_streams.py [out_dir]
+    JAX_PLATFORMS=cpu python tools/make_torch_streams.py [out_dir [kind ...]]
 
 Every stream is made here from the repo's own encoder and SBR / PS / CCE
-splicers (no downloaded data); three kinds, all written to tests/data
-(or out_dir) and committed: chip_smoke.py and the tests read them as
-files.
+splicers (no downloaded data), all written to tests/data (or out_dir)
+and committed: chip_smoke.py and the tests read them as files.  With
+kinds (he34, stereo, cce, flip, lc_cce, ds) only those are written;
+every stream is deterministic, so a rerun rewrites each byte for byte.
 
 heaac_v2_34band_{i}.aac, i in 0..7 (48 kHz stereo out): SBR + 34-band
 parametric stereo spliced into the bundled LC cores
@@ -60,6 +61,25 @@ frame 6 (tests/test_ps_flip.py's flip + coupling recipe on a bundled
 core).  Checked with the planner: the trail, 2 lanes, 1 output lane and
 coupling edges.
 
+lc_cce_{after,before}_{j}.aac, j in 0..3 (24 kHz mono out, 50 frames):
+AAC-LC with no SBR, core benchdata/lc_core_24k_{j}.aac rebuilt in a PCE
+layout (channel configuration 0) with a coupling channel element each
+frame (``splice_cce_into_lc``, seeded j), applied after the IMDCT or
+before TNS.  The native whole-stream parser takes channel
+configurations 1-7 only, so these go through the LC Python planner.
+Checked with the port's native probe (no SBR) and its LC planner: 2
+lanes (the SCE, then the CCE lane), 1 output channel, coupling edges on
+the "after" streams only.
+
+heaac_ds_{i}.aac, i in 0..7 (24 kHz stereo out, 50 frames), and
+heaac_ds.asc: downsampled SBR.  SBR + 20-band PS spliced into core
+benchdata/lc_core_24k_{i}.aac; the stream signals nothing of the mode,
+the AudioSpecificConfig does: AOT 5, rate index 6, 1 channel, extension
+rate index 6, AOT 2 (tests/test_batch_device.py's recipe), so the
+extension rate equals the core rate and the decoder runs the 32-band
+synthesis (1024 samples a frame).  Checked with the port's Python
+planner given the ASC: downsampled, 24 kHz, 1 lane, 20-band PS.
+
 Every SBR writer here signals no inverse filtering (invf_mode 0).  The
 cores are tonal, so a whitened patch (invf_mode 2 or 3) is the small
 residual of a nearly exact two-tap prediction, which the envelope gains
@@ -98,6 +118,20 @@ PS_MODES = {(False, 20): (1, 1), (False, 34): (2, 2),
 FLIP_SCHEDULES = {0: (20, {6: 34}), 1: (34, {9: 20}),
                   2: (20, {5: 34, 11: 20}), 3: (34, {2: 20, 11: 34})}
 FLIP_CCE_CORE = 2
+LC_CCE_N = 4           # LC + CCE streams per coupling point
+DS_ASC = "heaac_ds.asc"
+
+
+def ds_asc() -> bytes:
+    """The downsampled streams' AudioSpecificConfig: AOT 5 (SBR), rate
+    index 6 (24 kHz), 1 channel, extension rate index 6, AOT 2 (LC),
+    then GASpecificConfig's three zero bits."""
+    from heaac_tpu.io.bitwriter import BitWriter
+    bw = BitWriter()
+    for nbits, value in ((5, 5), (4, 6), (4, 1), (4, 6), (5, 2), (3, 0)):
+        bw.put(nbits, value)
+    bw.align()
+    return bw.bytes()
 
 
 def make_stream(i: int, invf_modes=INVF_MODES) -> bytes:
@@ -175,6 +209,52 @@ def make_flip_cce_stream() -> bytes:
                         seed=11, invf_modes=INVF_MODES, grid_classes=(0,),
                         fix_num_env=1, ps_writer=psw)
     return splice_sbr_multi(cce, {(TT.TYPE_SCE, 0): w})
+
+
+def make_lc_cce_stream(point: str, j: int) -> bytes:
+    from heaac_tpu.io.heaac_testgen import splice_cce_into_lc
+    core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{j}.aac"),
+                "rb").read()
+    return splice_cce_into_lc(core, coupling_point=point, seed=j)
+
+
+def make_ds_stream(i: int) -> bytes:
+    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
+                                            splice_sbr_into_lc)
+    core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{i}.aac"),
+                "rb").read()
+    ps = PsStreamWriter(seed=4000 + 5 * i, iid_mode=1, icc_mode=1)
+    ps.ps_payload = functools.partial(PsStreamWriter.ps_payload, ps,
+                                      max_bytes=PS_MAX_BYTES)
+    w = SbrStreamWriter(core_rate=CORE_RATE, is_cpe=False, env_hi_shift=-12,
+                        seed=6000 + 7 * i, invf_modes=INVF_MODES,
+                        ps_writer=ps)
+    return splice_sbr_into_lc(core, w)
+
+
+def check_lc_cce(point: str, j: int, data: bytes) -> str:
+    from heaac_tpu_torch import native
+    from heaac_tpu_torch.codec.batch import LcStreamBatchDecoder
+    from heaac_tpu_torch.host import parse_adts_header
+    probe = native.Parser().probe(data, parse_adts_header(data[:7]))
+    dec = LcStreamBatchDecoder([data], device="cpu")
+    edges = dec.couple is not None
+    if (probe is None or probe["sbr"] or dec.T != 50
+            or (dec.lane_block, dec.channels) != (2, 1)
+            or edges != (point == "after")):
+        raise SystemExit(f"LC + CCE stream {point} {j}: probe {probe}, "
+                         f"{dec.T} frames, lanes {dec.lane_block}, channels "
+                         f"{dec.channels}, edges {edges}")
+    return f"probe {probe}, 2 lanes, 1 channel, edges {edges}"
+
+
+def check_ds(i: int, data: bytes, asc: bytes) -> str:
+    from heaac_tpu_torch.codec.planner import parse_stream_qwire
+    frames, rate, nl, is34, ds = parse_stream_qwire(data, asc=asc)
+    if (len(frames), rate, nl, is34, ds) != (50, CORE_RATE, 1, 0, 1):
+        raise SystemExit(f"downsampled stream {i}: {len(frames)} frames, "
+                         f"rate {rate}, lanes {nl}, is34 {is34}, ds {ds}")
+    return "downsampled, 24 kHz, 1 lane, 20-band PS"
 
 
 def planner_parse(data: bytes) -> dict:
@@ -342,31 +422,50 @@ def main() -> None:
             f.write(data)
         print(f"wrote {path}: {len(data)} bytes, {note}", flush=True)
 
-    for i in range(N):
-        data = make_stream(i)
-        h = parse_adts_header(BitReader(data[:7]))
-        p = native.probe_he_stream(data, h.sampling_index, h.sample_rate,
-                                   h.chan_config)
-        if p is None or (p["sbr"], p["is34"]) != (1, 1):
-            raise SystemExit(f"stream {i}: probe gave {p}, expected SBR "
-                             "with 34-band PS")
-        write(f"heaac_v2_34band_{i}.aac", data, f"probe {p}")
-    for i in range(N):
-        data = make_stereo_stream(i)
-        write(f"heaac_v1_stereo_{i}.aac", data, check_stereo(i, data))
-    for point in CCE_POINTS:
-        for j in range(2):
-            data = make_cce_stream(point, j)
-            write(f"heaac_cce_{point}_{j}.aac", data,
-                  check_cce(point, j, data))
-    for i in range(N):
-        data = make_flip_stream(i)
-        write(f"heaac_v2_flip_{i}.aac", data,
-              check_flip(f"flip stream {i}", data, flip_trail(i, 50), 1,
-                         False))
-    data = make_flip_cce_stream()
-    write("heaac_flip_cce_0.aac", data,
-          check_flip("flip + CCE stream", data, [0] * 6 + [1] * 44, 2, True))
+    kinds = set(sys.argv[2:]) or {"he34", "stereo", "cce", "flip",
+                                  "lc_cce", "ds"}
+    if "he34" in kinds:
+        for i in range(N):
+            data = make_stream(i)
+            h = parse_adts_header(BitReader(data[:7]))
+            p = native.probe_he_stream(data, h.sampling_index, h.sample_rate,
+                                       h.chan_config)
+            if p is None or (p["sbr"], p["is34"]) != (1, 1):
+                raise SystemExit(f"stream {i}: probe gave {p}, expected SBR "
+                                 "with 34-band PS")
+            write(f"heaac_v2_34band_{i}.aac", data, f"probe {p}")
+    if "stereo" in kinds:
+        for i in range(N):
+            data = make_stereo_stream(i)
+            write(f"heaac_v1_stereo_{i}.aac", data, check_stereo(i, data))
+    if "cce" in kinds:
+        for point in CCE_POINTS:
+            for j in range(2):
+                data = make_cce_stream(point, j)
+                write(f"heaac_cce_{point}_{j}.aac", data,
+                      check_cce(point, j, data))
+    if "flip" in kinds:
+        for i in range(N):
+            data = make_flip_stream(i)
+            write(f"heaac_v2_flip_{i}.aac", data,
+                  check_flip(f"flip stream {i}", data, flip_trail(i, 50), 1,
+                             False))
+        data = make_flip_cce_stream()
+        write("heaac_flip_cce_0.aac", data,
+              check_flip("flip + CCE stream", data, [0] * 6 + [1] * 44, 2,
+                         True))
+    if "lc_cce" in kinds:
+        for point in CCE_POINTS:
+            for j in range(LC_CCE_N):
+                data = make_lc_cce_stream(point, j)
+                write(f"lc_cce_{point}_{j}.aac", data,
+                      check_lc_cce(point, j, data))
+    if "ds" in kinds:
+        asc = ds_asc()
+        write(DS_ASC, asc, f"AudioSpecificConfig {asc.hex()}")
+        for i in range(N):
+            data = make_ds_stream(i)
+            write(f"heaac_ds_{i}.aac", data, check_ds(i, data, asc))
 
 
 if __name__ == "__main__":
