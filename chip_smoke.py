@@ -77,7 +77,9 @@ Phases (any failure exits non-zero):
      the first of them is stream 0 of its bucket: the Python profile
      parse) and the 8 bundled 20-band streams, each its own buffer;
      checks the two buckets' ``bucket_stats`` (streams, frames, steps),
-     K1's launches (exactly groups x steps at napb 30, none at 50), the
+     K1's launches (exactly groups x steps at napb 30, plus one at one
+     lane for each probed stream: the prober decodes its frame 0, where
+     PS runs; none at 50), the
      profile parse, every output's shape and non-silence, and the first
      16 frames of streams 0-1 of each kind within 2 LSB of the JAX
      goldens (tests/data/lc_batch_golden_jax.npz,
@@ -92,7 +94,29 @@ Phases (any failure exits non-zero):
      lanes, lanes 0-7 within 2 LSB of the port's CPU run and lanes 0-3
      of the JAX golden (tests/data/downsampled_golden_jax.npz) over 16
      frames, and the realtime factor (audio at the 24 kHz core rate,
-     1024 samples a frame).
+     1024 samples a frame);
+  9. the single-stream ``Decoder`` on the card: K1's warm device time
+     at B=1, napb 30 and 50 (its width there); (a)
+     heaac_tpu_torch.decode_batch with its default device over the two
+     streams whose frame 0 has a corrupted byte (``CORRUPT`` he20_f0_0,
+     he34_f0_0: the Python prober cannot decode frame 0, the AAC-LC
+     bucket fails, and decode_batch falls back to the single-stream
+     Decoder on its device, which drops frame 0; PS never starts) and
+     the 8 bundled 20-band streams, shuffled: the records
+     (``bucket_stats``, ``single_stats``), K1's launches (the HE
+     bucket's 50 at napb 30 and nothing at one lane), and the first 16
+     frames of both fallback streams within 2 LSB of the JAX golden
+     (tests/data/single_golden_jax.npz) and of the port's CPU Decoder;
+     (b) ``decode_adts`` on the whole of benchdata/heaac_bench_stream_0
+     .aac, tests/data/heaac_v2_34band_0.aac, heaac_v2_flip_0.aac,
+     heaac_v1_stereo_1.aac and heaac_cce_after_0.aac, and
+     ``Decoder(asc=)`` on heaac_ds_0.aac (50 frames each): K1 at one
+     lane exactly once per frame in which PS ran, per napb (counted on
+     the port's CPU run of the same stream), each stream within 2 LSB of
+     the CPU run and, over its first 16 frames, of the JAX golden; per
+     stream its frames, audio and wall seconds, realtime and ms per
+     frame; and the device's busy share over the first stream from
+     torch.profiler.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -140,6 +164,9 @@ LC_CCE_COPIES = 8              # copies of each LC + CCE stream in phase 8
 PROBED = ("he20_f1_0", "he20_f1_1")  # phase 8 (a): the Python prober's
 DS_FILE = "tests/data/heaac_ds_{}.aac"
 DS_ASC = "tests/data/heaac_ds.asc"
+FALLBACK = ("he20_f0_0", "he34_f0_0")  # phase 9 (a): frame 0 corrupt
+# phase 9 (b): streams of the single-stream golden, decoded whole
+SINGLE = ("he20_0", "he34_0", "flip_0", "he_v1s_1", "cce_after_0", "ds_0")
 FLUSH_BYTES = 128 << 20        # > 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -517,16 +544,20 @@ class FlipLog(BucketLog):
 
 
 class RouteLog(FlipLog):
-    """decode_batch's per-bucket and per-flip-stream records, and every
-    message."""
+    """decode_batch's per-bucket, per-flip-stream and single-stream
+    records, and every message."""
 
     def __init__(self):
         super().__init__()
         self.messages = []
+        self.singles = []
 
     def emit(self, record):
         super().emit(record)
         self.messages.append(record.getMessage())
+        st = getattr(record, "single_stats", None)
+        if st is not None:
+            self.singles.append(st)
 
 
 def flip_gold() -> dict:
@@ -756,10 +787,13 @@ def lc_prober_batch(K, card: str, bench: list) -> dict:
           f"(scan, copy out) {lc['wall_s'] - lc['init_s']:.3f} s; whole "
           f"call {wall:.3f} s; first HE stream {he_first}, profile from "
           f"the Python planner: {profile_parse}", flush=True)
-    expect = {30: -(-n_he // GROUP_LANES) * he["steps"], 50: 0}
+    # the Python prober decodes frame 0 of each probed stream, and PS runs
+    # there: one K1 launch at one lane each
+    expect = {30: -(-n_he // GROUP_LANES) * he["steps"] + len(PROBED),
+              50: 0}
     print(f"K1 phase 8 (a): {launches} launches, expected {expect} (HE "
-          f"bucket: {-(-n_he // GROUP_LANES)} group x {he['steps']} steps)",
-          flush=True)
+          f"bucket: {-(-n_he // GROUP_LANES)} group x {he['steps']} steps; "
+          f"the prober's frame 0 of {len(PROBED)} streams)", flush=True)
     if launches != expect:
         raise SystemExit(f"K1 launched {launches}, expected {expect}")
     if he_first not in PROBED or not profile_parse:
@@ -845,6 +879,187 @@ def downsampled_full_width(K, card: str, device="cuda") -> dict:
         raise SystemExit("downsampled scan: card output differs from the "
                          "references")
     return dict(launches=launches, realtime=audio_s / wall)
+
+
+def single_decode(name: str, device, tool) -> tuple:
+    """(pcm, output rate, wall s, frames) of a stream of the single-stream
+    golden decoded whole: ``decode_adts``, or ``Decoder(asc=)`` frame by
+    frame for the downsampled stream."""
+    from heaac_tpu_torch import Decoder, decode_adts
+    from heaac_tpu_torch.host import split_adts_stream
+    data = tool.single_stream(name, REPO)
+    frames = split_adts_stream(data)
+    t0 = time.perf_counter()
+    if name == "ds_0":
+        with open(os.path.join(REPO, DS_ASC), "rb") as f:
+            dec = Decoder(asc=f.read(), device=device)
+        pcm = torch.cat([dec.decode_frame(fr[7:]) for fr in frames])
+        rate = dec.sample_rate
+    else:
+        pcm, rate = decode_adts(data, device=device)
+    return pcm, rate, time.perf_counter() - t0, len(frames)
+
+
+def ps_frames_on_cpu(fn) -> tuple:
+    """(fn()'s result, {napb: calls of decorrelate_seq}) for a CPU run,
+    where the wrapper runs K1's plain version and counts no launch."""
+    from heaac_tpu_torch.ops import ps as ps_ops
+    calls = []
+    real = ps_ops.decorrelate_seq
+
+    def spy(*a):
+        calls.append(a[1].shape[1])
+        return real(*a)
+
+    ps_ops.decorrelate_seq = spy
+    try:
+        out = fn()
+    finally:
+        ps_ops.decorrelate_seq = real
+    return out, {30: calls.count(30), 50: calls.count(50)}
+
+
+def stream_line(name: str, frames: int, audio_s: float, wall: float,
+                card: str) -> str:
+    return (f"{name}: {frames} frames, audio {audio_s:.3f} s, wall "
+            f"{wall:.3f} s, realtime {audio_s / wall:.2f}x, "
+            f"{1e3 * wall / frames:.2f} ms per frame on {card}")
+
+
+def single_fallback_batch(K, card: str, bench: list) -> dict:
+    """Phase 9 (a): decode_batch on the card over the two streams whose
+    frame 0 is corrupt and the 20-band streams, shuffled: the corrupt
+    ones fall back to the single-stream Decoder on the card, where PS
+    never starts; returns K1's launches."""
+    from heaac_tpu_torch import Decoder, decode_batch
+    from heaac_tpu_torch.host import split_adts_stream
+    tool = golden_tool()
+    items = ([(name, tool.corrupted(name, REPO)) for name in FALLBACK]
+             + [(f"he20_{i}", d) for i, d in enumerate(bench)])
+    order = np.random.default_rng(9).permutation(len(items))
+    items = [items[k] for k in order]
+    names = [name for name, _ in items]
+    flog = RouteLog()
+    logger = logging.getLogger("heaac_tpu_torch")
+    logger.addHandler(flog)
+    logger.setLevel(logging.INFO)
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs = decode_batch([bytes(bytearray(d)) for _, d in items])
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    logger.removeHandler(flog)
+    he = {st["key"]: st for st in flog.stats}.get(("he", 6, 1, 0))
+    singles = {names[st["stream"]]: st for st in flog.singles}
+    for name, st in singles.items():
+        print("fallback " + stream_line(name, st["frames"], st["audio_s"],
+                                        st["wall_s"], card)
+              + f", {st['dropped']} dropped", flush=True)
+    print(f"phase 9 (a): {len(items)} streams in {wall:.3f} s; HE bucket "
+          f"{he and (he['streams'], he['steps'], round(he['wall_s'], 3))}"
+          f"; K1 launches {launches}", flush=True)
+    if (he is None or (he["streams"], he["steps"]) != (len(bench), 50)
+            or set(singles) != set(FALLBACK)
+            or any(st["dropped"] != 1 for st in singles.values())):
+        raise SystemExit(f"phase 9 (a): HE bucket {he}, single-stream "
+                         f"decodes {singles}")
+    # the batched bucket's launches only: PS never starts on the corrupt
+    # streams, so the single-stream decoder runs no K1
+    if launches != {30: he["steps"], 50: 0}:
+        raise SystemExit(f"phase 9 (a): K1 launched {launches}, expected "
+                         f"{he['steps']} at napb 30 (the batched bucket)")
+    with np.load(tool.SINGLE_GOLDEN) as z:
+        gold = {name: z[f"pcm_{name}"] for name in FALLBACK}
+    worst = {}
+    for name in FALLBACK:
+        data = dict(items)[name]
+        head = b"".join(split_adts_stream(data)[:GOLDEN_FRAMES])
+        cpu = Decoder(adts_probe=head[:7], device="cpu").decode(head)
+        got = outs[names.index(name)][:len(cpu)].numpy().astype(np.int32)
+        worst[name] = (int(np.abs(got - gold[name]).max()),
+                       int(np.abs(got - cpu.numpy()).max()))
+        if len(cpu) != len(gold[name]) or int(cpu.abs().max()) == 0:
+            raise SystemExit(f"{name}: CPU decode {tuple(cpu.shape)}")
+    print(f"fallback streams, first {GOLDEN_FRAMES} frames, max LSB (vs JAX "
+          f"golden, vs port CPU): {worst}", flush=True)
+    if max(max(v) for v in worst.values()) > TOL_LSB:
+        raise SystemExit("phase 9 (a): card output differs from the "
+                         "references")
+    return launches
+
+
+def single_streams(K, card: str) -> dict:
+    """Phase 9 (b): each SINGLE stream decoded whole by the single-stream
+    Decoder on the card; K1 at one lane exactly once per frame in which
+    PS ran (counted on the CPU run), per napb; each within 2 LSB of the
+    CPU run and, over its first frames, of the JAX golden.  Returns K1's
+    launches summed over the streams and the device's busy share over
+    the first stream."""
+    from torch.profiler import ProfilerActivity, profile
+    tool = golden_tool()
+    gold = dict(np.load(tool.SINGLE_GOLDEN))
+    for name in ("he20_0", "he34_0"):               # warm-up, both napb
+        single_decode(name, "cuda", tool)
+    total = {30: 0, 50: 0}
+    worst = {}
+    for name in SINGLE:
+        (cpu, _, _, _), expect = ps_frames_on_cpu(
+            lambda: single_decode(name, "cpu", tool))
+        reset_launches(K)
+        pcm, rate, wall, frames = single_decode(name, "cuda", tool)
+        launches = dict(K.launches)
+        print(stream_line(name, frames, pcm.shape[0] / rate, wall, card)
+              + f"; K1 launches {launches}, PS frames on the CPU {expect}",
+              flush=True)
+        if launches != expect:
+            raise SystemExit(f"{name}: K1 launched {launches}, PS ran "
+                             f"{expect}")
+        want = gold[f"pcm_{name}"].astype(np.int32)
+        got = pcm.numpy().astype(np.int32)
+        if got.shape != cpu.shape or int(cpu.abs().max()) == 0:
+            raise SystemExit(f"{name}: card {got.shape}, CPU "
+                             f"{tuple(cpu.shape)}")
+        worst[name] = (int(np.abs(got[:len(want)] - want).max()),
+                       int(np.abs(got - cpu.numpy()).max()))
+        for napb in total:
+            total[napb] += launches[napb]
+    print(f"single-stream decodes, max LSB (first {GOLDEN_FRAMES} frames vs "
+          f"JAX golden, whole stream vs port CPU): {worst}", flush=True)
+    if max(max(v) for v in worst.values()) > TOL_LSB:
+        raise SystemExit("phase 9 (b): card output differs from the "
+                         "references")
+    if not (total[30] and total[50]):
+        raise SystemExit(f"phase 9 (b): K1 did not run at both napb: {total}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        single_decode(SINGLE[0], "cuda", tool)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e6 / wall
+    print(f"{SINGLE[0]} under torch.profiler: {len(kernels)} device records"
+          f" in {wall:.3f} s, device busy {100 * busy:.2f}% of the wall",
+          flush=True)
+    return dict(launches=total, busy=busy)
+
+
+def k1_one_lane(K) -> dict:
+    """K1 at B=1 (the single-stream decoder's width), warm device ms and
+    its bound, per napb."""
+    out = {}
+    for napb in (30, 50):
+        args = k1_args(1, napb, 5 + napb, K)
+        outs = K.decorrelate_seq(*args)
+        ms = device_ms(lambda: K.decorrelate_seq(*args),
+                       "ps_decorrelate_kernel")
+        bound_ms, bound_by = k1_bound(args, outs)
+        out[napb] = dict(warm_ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"K1 B=1 napb={napb}: warm {ms:.5f} ms, bound {bound_ms:.6f} "
+              f"ms ({bound_by})", flush=True)
+    return out
 
 
 def main() -> None:
@@ -947,6 +1162,12 @@ def main() -> None:
           flush=True)
     phase_done("8 LC planner, prober and downsampled SBR")
 
+    # ---- 9. the single-stream Decoder --------------------------------------
+    k1_b1 = k1_one_lane(K)        # before the profile of a whole stream
+    single_a = single_fallback_batch(K, card, bench)
+    single_b = single_streams(K, card)
+    phase_done("9 single-stream decoder")
+
     row = dict(krows[30])
     row.pop("max_abs_err")
     print(json.dumps({"kernels": [{
@@ -983,7 +1204,18 @@ def main() -> None:
         "launches_phase8b_napb30": ds_b["launches"][30],
         "launches_phase8b_path": "phase 8 (b): qwire_scan_decode("
                                  f"downsampled=1), {LANES} lanes x 50 "
-                                 "frames"}]}))
+                                 "frames",
+        "launches_phase9a_napb30": single_a[30],
+        "launches_phase9a_path": "phase 9 (a): decode_batch, 2 streams "
+                                 "with a corrupt frame 0 (single-stream "
+                                 "Decoder, PS never starts: no K1) and 8 "
+                                 "20-band streams (one HE group)",
+        "launches_phase9b_napb30": single_b["launches"][30],
+        "launches_phase9b_napb50": single_b["launches"][50],
+        "launches_phase9b_path": "phase 9 (b): the single-stream Decoder, "
+                                 "K1 at B=1 once per PS frame: "
+                                 + ", ".join(SINGLE) + ", 50 frames each",
+        "b1": k1_b1}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

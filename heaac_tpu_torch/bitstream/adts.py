@@ -1,5 +1,6 @@
-"""Port copy of ``heaac_tpu/bitstream/adts.py`` (lines 1-59: the header
-parse; split_adts_stream is ``heaac_tpu_torch.host``'s), numpy only: the
+"""Port copy of ``heaac_tpu/bitstream/adts.py`` (lines 1-59, the header
+parse, and probe_adts; split_adts_stream is ``heaac_tpu_torch.host``'s),
+numpy only: the
 port imports nothing of the JAX package, so it keeps its own copy of the
 host parser (tables from ``heaac_tpu_torch.tables``).  Names as there.
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..host import split_adts_stream
 from ..tables import SAMPLE_RATES
 from .reader import BitReader, BitstreamError
 
@@ -60,3 +62,11 @@ def parse_adts_header(br: BitReader) -> AdtsHeader:
         frame_length=size,
         num_aac_frames=rdb + 1,
     )
+
+
+def probe_adts(data: bytes, max_frames: int = 8) -> AdtsHeader | None:
+    """Probe: require a chain of consecutive valid headers (raw.c:666-700)."""
+    frames = split_adts_stream(data[: 64 * 1024])
+    if len(frames) < min(2, max_frames):
+        return None
+    return parse_adts_header(BitReader(frames[0]))

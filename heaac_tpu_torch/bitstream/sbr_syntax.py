@@ -1,8 +1,10 @@
 """Port copy of ``heaac_tpu/bitstream/sbr_syntax.py`` (lines 1-840, without
 the QMF window and noise tables, which ``heaac_tpu_torch.tables``
-holds, and sbr_dequant, which the device does), numpy only: the port imports nothing of
-the JAX package, so it keeps its own copy of the host parser (tables
-from ``heaac_tpu_torch.tables``).  Names as there.
+holds), numpy only: the port imports nothing of the JAX package, so it
+keeps its own copy of the host parser (tables from
+``heaac_tpu_torch.tables``).  Names as there.  ``sbr_dequant`` serves
+the single-stream decoder (``ops/sbr_single.py``); the qwire path
+dequantizes on the device.
 
 SBR (Spectral Band Replication) bitstream parsing + frequency tables.
 
@@ -790,3 +792,38 @@ def decode_sbr_extension(dec, br: BitReader, che, crc: bool, cnt: int,
     finally:
         br.pos = end_pos
     return cnt
+
+
+def sbr_dequant(sbr: SBRContext, id_aac: int) -> None:
+    """aacsbr.c:1089-1128 (float32 exp2 semantics)."""
+    exp2 = lambda x: np.exp2(np.float32(x), dtype=np.float32)  # noqa: E731
+    if id_aac == T.TYPE_CPE and sbr.bs_coupling:
+        alpha = np.float32(1.0 if sbr.data[0].bs_amp_res else 0.5)
+        pan_offset = np.float32(12.0 if sbr.data[0].bs_amp_res else 24.0)
+        for e in range(1, sbr.data[0].bs_num_env + 1):
+            for k in range(sbr.n[sbr.data[0].bs_freq_res[e]]):
+                temp1 = exp2(sbr.data[0].env_facs[e][k] * alpha + 7.0)
+                temp2 = exp2((pan_offset - sbr.data[1].env_facs[e][k])
+                             * alpha)
+                fac = np.float32(temp1 / (np.float32(1.0) + temp2))
+                sbr.data[0].env_facs[e][k] = fac
+                sbr.data[1].env_facs[e][k] = np.float32(fac * temp2)
+        for e in range(1, sbr.data[0].bs_num_noise + 1):
+            for k in range(sbr.n_q):
+                temp1 = exp2(NOISE_FLOOR_OFFSET
+                             - sbr.data[0].noise_facs[e][k] + 1)
+                temp2 = exp2(12 - sbr.data[1].noise_facs[e][k])
+                fac = np.float32(temp1 / (np.float32(1.0) + temp2))
+                sbr.data[0].noise_facs[e][k] = fac
+                sbr.data[1].noise_facs[e][k] = np.float32(fac * temp2)
+    else:
+        for ch in range(2 if id_aac == T.TYPE_CPE else 1):
+            d = sbr.data[ch]
+            alpha = np.float32(1.0 if d.bs_amp_res else 0.5)
+            for e in range(1, d.bs_num_env + 1):
+                for k in range(sbr.n[d.bs_freq_res[e]]):
+                    d.env_facs[e][k] = exp2(alpha * d.env_facs[e][k] + 6.0)
+            for e in range(1, d.bs_num_noise + 1):
+                for k in range(sbr.n_q):
+                    d.noise_facs[e][k] = exp2(
+                        NOISE_FLOOR_OFFSET - d.noise_facs[e][k])

@@ -4,8 +4,9 @@ front door ``decode_batch``.
 Counterparts: ``heaac_tpu/codec/batch.py`` — QwirePipelinedDecoder
 (with its Python-planner fallback and Python profile parse),
 decode_qwire_flip_stream, LcStreamBatchDecoder (with its LC-planner
-branch), decode_batch (with its Python prober), _decode_bucket_retry,
-_decode_bucket.
+branch), decode_batch (with its Python prober), _decode_bucket_retry
+(with its last fallback, the single-stream ``codec/decoder.Decoder`` on
+decode_batch's device), _decode_bucket.
 
 QwirePipelinedDecoder (HE-AAC v1/v2): the native parser (``native.py``)
 writes each group of streams into a byte heap + per-frame-lane records
@@ -34,12 +35,8 @@ Differences from the JAX package:
     element (``host.pce_lanes``); only where the probe refuses or its
     lanes disagree with the layout from the Python planner, which the
     JAX package always runs;
-  - decode_batch's Python prober parses the first frame and does not
-    decode it (the decoding half of ``Decoder`` is not ported);
-  - a stream whose PS band mode flips mid-stream goes, after the bisect,
-    through ``decode_qwire_flip_stream``; what the JAX package hands to
-    its single-stream ``Decoder`` raises NotImplementedError naming the
-    stream;
+  - the single-stream fallback also logs an INFO record with a
+    ``single_stats`` dict (the JAX package logs only its WARNING);
   - the heap travels as a uint8 tensor (the f32 view existed only for
     the TPU transport).
 """
@@ -610,22 +607,12 @@ class LcStreamBatchDecoder:
 # ---------------------------------------------------------------------------
 # Heterogeneous batch front door: bucket streams by decode profile
 # ---------------------------------------------------------------------------
-class _FrameProbe(Decoder):
-    """The parsing half of ``Decoder`` with nothing after the parse: the
-    Python prober reads what the parse leaves."""
-
-    def _spectral_to_sample(self, present):
-        return None
-
-
-def _python_probe(data: bytes) -> tuple:
+def _python_probe(data: bytes, device) -> tuple:
     """decode_batch's Python prober (JAX batch.py:1791-1801): the first
-    frame through the Python element parser -> (SBR signalled, any
-    element's PS in 34 bands); (False, False), an AAC-LC bucket, when the
-    parse raises.  The JAX package decodes the frame too; its decoding
-    half is not ported, so a stream whose parse succeeds and whose
-    decode would raise is bucketed by the parse."""
-    probe = _FrameProbe(adts_probe=data[:7])
+    frame through the single-stream ``Decoder`` on ``device`` -> (SBR
+    signalled, any element's PS in 34 bands); (False, False), an AAC-LC
+    bucket, when the decode raises."""
+    probe = Decoder(adts_probe=data[:7], device=device)
     try:
         probe.decode_frame(split_adts_stream(data)[0])
     except Exception:  # noqa: BLE001 - as the JAX probe: any error is LC
@@ -646,13 +633,13 @@ def decode_batch(streams, device="cuda") -> list:
     channel per output lane otherwise (stereo HE-AAC v1: two), never the
     lanes of coupling channel elements; a buffer with no ADTS sync word
     gives [0, 1].  A stream the native probe refuses is bucketed by the
-    Python prober (``_python_probe``).  A stream the port cannot decode
-    batched raises NotImplementedError naming its index (the JAX
-    package decodes it with its single-stream ``Decoder``, which is not
-    ported).  Each bucket logs, at INFO, its key, streams, frames, audio
-    and wall seconds (also as the record's ``bucket_stats`` dict, with
-    the scan steps and ``init_s``, the seconds of the decoder's
-    construction: for AAC-LC the whole parse and upload)."""
+    Python prober (``_python_probe``).  A stream that fails its batched
+    decode is decoded by the single-stream ``Decoder`` on ``device``, as
+    in the JAX package.  Each bucket logs, at INFO, its key, streams,
+    frames, audio and wall seconds (also as the record's
+    ``bucket_stats`` dict, with the scan steps and ``init_s``, the
+    seconds of the decoder's construction: for AAC-LC the whole parse
+    and upload)."""
     dev = resolve(device)
     parser = native.Parser()
     streams = [bytes(s) for s in streams]
@@ -672,7 +659,7 @@ def decode_batch(streams, device="cuda") -> list:
         probe = (parser.probe(data, hdr) if hdr.object_type in (1, 2)
                  else None)
         if probe is None:
-            sbr, is34 = _python_probe(data)
+            sbr, is34 = _python_probe(data, dev)
         else:
             sbr, is34 = probe["sbr"], probe["is34"]
         key = ("he" if sbr else "lc", hdr.sampling_index, hdr.chan_config,
@@ -690,14 +677,15 @@ def _decode_bucket_retry(key, idxs, streams, results, device,
     flip is decoded by ``decode_qwire_flip_stream`` (logged at INFO with
     a ``flip_stats`` dict: stream, frames, audio and wall seconds).  Any
     other single stream that fails, and a flip stream whose flip decode
-    fails, raises NotImplementedError naming it, chained to the error
-    (the JAX package decodes it with its single-stream ``Decoder``,
-    which is not ported)."""
+    fails, falls back to the single-stream ``Decoder`` on ``device``
+    (logged at WARNING, then at INFO with a ``single_stats`` dict:
+    stream, frames, dropped frames, audio and wall seconds); an error of
+    that decoder propagates."""
     try:
         _decode_bucket(key, [streams[i] for i in idxs], idxs, results,
                        device)
         return
-    except Exception as exc:  # noqa: BLE001 - bisect, then name the stream
+    except Exception as exc:  # noqa: BLE001 - bisect, then fall back
         failed = exc
     if len(idxs) > 1:
         if depth == 0:
@@ -710,24 +698,35 @@ def _decode_bucket_retry(key, idxs, streams, results, device,
         _decode_bucket_retry(key, idxs[mid:], streams, results, device,
                              depth + 1)
         return
-    # raised outside the except blocks: the traceback shows the cause as
-    # the cause, not as an error met "during handling" of another
-    if not (isinstance(failed, NotImplementedError)
-            and "PS band mode" in str(failed)):
-        _raise_unported(idxs[0], "its batched decode", failed)
-    try:
-        _decode_flip(idxs[0], streams[idxs[0]], results, device)
-        return
-    except Exception as exc:  # noqa: BLE001 - name the stream
-        failed = exc
-    _raise_unported(idxs[0], "its band-mode-flip decode", failed)
+    i = idxs[0]
+    if isinstance(failed, NotImplementedError) \
+            and "PS band mode" in str(failed):
+        # mid-stream 20<->34 flip: the flip-capable scan first
+        try:
+            _decode_flip(i, streams[i], results, device)
+            return
+        except Exception as exc:  # noqa: BLE001 - the single-stream decoder
+            log.warning("decode_batch: flip-scan decode of stream %d failed "
+                        "(%s: %s); using the single-stream decoder", i,
+                        type(exc).__name__, exc)
+    log.warning("decode_batch: stream %d fell back to the single-stream "
+                "decoder: %s: %s", i, type(failed).__name__, failed)
+    _decode_single(i, streams[i], results, device)
 
 
-def _raise_unported(i: int, what: str, exc: Exception):
-    raise NotImplementedError(
-        f"stream {i}: {what} failed ({type(exc).__name__}: {exc}) and the "
-        "JAX package's single-stream Decoder, which decodes it there, is "
-        "not ported") from exc
+def _decode_single(i: int, data: bytes, results, device) -> None:
+    t0 = time.perf_counter()
+    dec = Decoder(adts_probe=data[:7], device=device)
+    results[i] = dec.decode(data)
+    frames = count_adts_frames(data)
+    rows = results[i].shape[0]
+    stats = dict(stream=i, frames=frames, dropped=dec.error_count,
+                 audio_s=rows / max(dec.sample_rate, 1),
+                 wall_s=time.perf_counter() - t0)
+    log.info("decode_batch: stream %d decoded by the single-stream decoder: "
+             "%d frames (%d dropped), %.3f s of audio in %.6f s", i,
+             frames, dec.error_count, stats["audio_s"], stats["wall_s"],
+             extra={"single_stats": stats})
 
 
 def _decode_flip(i: int, data: bytes, results, device) -> None:

@@ -1,28 +1,50 @@
-"""The parsing half of the single-stream decoder (host, numpy only).
+"""The single-stream decoder: host element loop, dense work on the device.
 
-Port copy of ``heaac_tpu/codec/decoder.py:22-415, 504-534``: LaneRef and
-``Decoder`` with __init__, _configure, _configure_from_pce,
-decode_frame, _get_che, _parse_raw_data_block, _decode_cpe, _skip_dse,
-_decode_extension, _apply_dependent_coupling_stage and
-_fan_out_coupling; names as there.  It parses with the Python element
-parser only (the JAX package's native per-element path is not ported:
-its planner turns it off) and leaves ``_spectral_to_sample`` to the
-subclass: the Python planner (``codec/planner.py``) overrides it, and
-the single-stream decode (``core_frame_np``, ``sbr_np``, ``ps_np``) is
-not ported.
+Port of ``heaac_tpu/codec/decoder.py``: LaneRef and ``Decoder`` with
+__init__, _configure, _configure_from_pce, decode_frame, decode,
+_get_che, _parse_raw_data_block, _decode_cpe, _skip_dse,
+_decode_extension, _spectral_to_sample, _apply_sbr,
+_apply_dependent_coupling_stage and _fan_out_coupling, names as there;
+_apply_independent_coupling's loop is ``_point3_edges`` (with
+``_host_couple_and_tns``, from ``heaac_tpu/codec/batch.py``, shared
+with the planners).  It parses with the Python
+element parser only (the JAX package's native per-element path is not
+ported: its planner turns it off).
+
+The host parses, applies dependent coupling and TNS to the spectra, and
+does the parameter math that depends only on the bitstream
+(``ops/sbr_single.prepare``, ``ops/ps_single.prepare``); everything of
+a frame that goes to the device travels in one upload (``_upload``).
+On the decoder's device run the core IMDCT / overlap-add
+(``codec/core.core_frame`` with the overlap ``saved`` carried there),
+SBR (``ops/sbr_single``), PS with kernel K1 at one lane
+(``ops/ps_single``), the AFTER_IMDCT coupling mix and the int16
+rounding; the frame's int16 PCM is the one copy back to the host.  The
+Python planners (``codec/planner.py``) reuse the parsing half with no
+device and override ``_spectral_to_sample``.
 """
 from __future__ import annotations
 
 import copy
+import logging
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .. import tables as T
 from ..bitstream import aac_syntax as syn
 from ..bitstream.adts import parse_adts_header
 from ..bitstream.asc import M4AConfig, parse_audio_specific_config
 from ..bitstream.reader import BitReader, BitstreamError
+from ..bitstream.sbr_syntax import SBRContext
+from ..device import resolve
+from ..host import split_adts_stream
+from ..ops import ps_single, sbr_single
+from .core import consts as core_consts
+from .core import core_frame
+
+log = logging.getLogger("heaac_tpu_torch")
 
 SF_SCALE = np.float32(1.0 / -1024.0)  # no-bias path (aacdec.c:579)
 
@@ -34,16 +56,99 @@ class LaneRef:
     ch: int
 
 
+def _host_couple_and_tns(dec) -> None:
+    """Dependent channel coupling + TNS in reference order (host side,
+    aacdec.c:1870-1898 stages 0/1), for the decoder and both planners.
+    AFTER_IMDCT (point 3) coupling mixes decoded time signals on the
+    device: over extra CCE lanes on the qwire and LC paths
+    (``planner._point3_edges_sub``, ``_point3_edges``), in the
+    decoder's output; the JAX package's ``raise_point3`` branch serves
+    only its dense-plan planner, which is not ported."""
+    dec._apply_dependent_coupling_stage(0, before_tns=True)
+    for lane in dec.lanes + dec.cce_lanes:
+        el = dec.elements[(lane.elem_type, lane.elem_id)]
+        cd = el.cur[lane.ch]
+        if el.present_this_frame and cd.coeffs is not None \
+                and cd.tns.present:
+            syn.apply_tns(cd.coeffs, cd)
+            cd.tns = syn.TnsData()
+    dec._apply_dependent_coupling_stage(1, before_tns=False)
+
+
+def _point3_edges(dec, lane_index_of) -> list:
+    """This frame's AFTER_IMDCT coupling edges [(tgt_lane, src_lane,
+    gain)] over the decoder's or the LC planner's lanes
+    (``lane_index_of``: (etype, eid, ch) -> lane), in the order of the
+    JAX decoder's _apply_independent_coupling (aacdec.c:1849-1862)."""
+    edges = []
+    for key, el in dec.elements.items():
+        if key[0] != T.TYPE_CCE or el.coup is None \
+                or not el.present_this_frame \
+                or el.coup.coupling_point != 3:
+            continue
+        src = lane_index_of.get((T.TYPE_CCE, key[1], 0))
+        if src is None:
+            continue
+        coup = el.coup
+        index = 0
+        for c in range(coup.num_coupled + 1):
+            tkey = (coup.type[c], coup.id_select[c])
+            ch_sel = coup.ch_select[c]
+            if dec.elements.get(tkey) is None:
+                index += 1 + (ch_sel == 3)
+                continue
+            if ch_sel != 1:
+                li = lane_index_of.get((tkey[0], tkey[1], 0))
+                if li is not None:
+                    edges.append((li, src, float(coup.gain[index][0])))
+                if ch_sel != 0:
+                    index += 1
+            if ch_sel != 2:
+                li = lane_index_of.get((tkey[0], tkey[1], 1))
+                if li is not None:
+                    edges.append((li, src, float(coup.gain[index][0])))
+                index += 1
+    return edges
+
+
+def _upload(groups: dict, device: torch.device) -> dict:
+    """The frame's host arrays on ``device`` in one copy: ``groups`` maps
+    names to dicts of values; every numpy array goes into one float32
+    buffer (pinned on the host when the device is a card, so the copy
+    does not wait for the device's queue) and comes back as a view of
+    the copy, integer arrays as int64 (their values are exact in
+    float32); other values pass through."""
+    arrays = [(g, k, v) for g, d in groups.items() for k, v in d.items()
+              if isinstance(v, np.ndarray)]
+    buf = torch.from_numpy(np.concatenate(
+        [np.asarray(v, np.float32).ravel() for _, _, v in arrays]
+        or [np.zeros(0, np.float32)]))
+    if device.type == "cuda":
+        buf = buf.pin_memory().to(device, non_blocking=True)
+    out = {g: dict(d) for g, d in groups.items()}
+    off = 0
+    for g, k, v in arrays:
+        t = buf[off:off + v.size].view(v.shape)
+        off += v.size
+        out[g][k] = t.long() if v.dtype.kind in "iub" else t
+    return out
+
+
 class Decoder:
-    """Stateful AAC / HE-AAC decoder for one stream."""
+    """Stateful AAC / HE-AAC decoder for one stream: its dense work runs on
+    ``device`` (the card unless the caller passes ``device="cpu"``; a
+    card raises RuntimeError without one).  ``device=None`` keeps the
+    parsing half only (the Python planners)."""
 
     def __init__(self, asc: bytes | None = None,
-                 adts_probe: bytes | None = None):
+                 adts_probe: bytes | None = None, device="cuda"):
+        self.device = None if device is None else resolve(device)
         self.m4ac = M4AConfig()
         self.elements: dict[tuple[int, int], syn.ChannelElement] = {}
         self.lanes: list[LaneRef] = []          # output channel order
         self.cce_lanes: list[LaneRef] = []      # extra IMDCT lanes for CCE
         self.rng = [0x1F2E3D4C]                 # PNS LCG state (aacdec.c:567)
+        self.saved = None                       # [B,512] device overlap state
         self.configured = False
         self.locked = False
         self.sample_rate = 0
@@ -108,8 +213,9 @@ class Decoder:
         return len(self.lanes)
 
     # ------------------------------------------------------------------
-    def decode_frame(self, packet: bytes) -> np.ndarray:
-        """Decode one ADTS frame / raw_data_block -> int16 [samples, ch]."""
+    def decode_frame(self, packet: bytes):
+        """Decode one ADTS frame / raw_data_block -> int16 [samples, ch], a
+        CPU tensor."""
         br = BitReader(packet)
         if br.show(12) == 0xFFF:
             hdr = parse_adts_header(br)
@@ -134,6 +240,24 @@ class Decoder:
         out = self._spectral_to_sample(frame_elements)
         self.locked = True
         return out
+
+    def decode(self, data: bytes):
+        """Decode a whole ADTS byte stream -> int16 [samples, channels], a
+        CPU tensor.
+
+        Per-frame error isolation (matches the reference CLI contract):
+        a corrupt frame is skipped with a warning and decoding continues
+        at the next syncword; see ``error_count``.
+        """
+        chunks = []
+        for f in split_adts_stream(data):
+            try:
+                chunks.append(self.decode_frame(f))
+            except BitstreamError as e:
+                self.error_count += 1
+                log.warning("frame dropped: %s", e)
+        return torch.cat(chunks) if chunks else torch.zeros(
+            (0, 1), dtype=torch.int16)
 
     def _get_che(self, etype: int, eid: int) -> syn.ChannelElement:
         key = (etype, eid)
@@ -310,9 +434,124 @@ class Decoder:
         br.pos = max(br.pos, start + 8 * cnt)
 
     def _spectral_to_sample(self, present):
-        raise NotImplementedError(
-            "the single-stream decode is not ported: subclass Decoder and "
-            "override _spectral_to_sample (codec/planner.py)")
+        m = self.m4ac
+        _host_couple_and_tns(self)
+        all_lanes = self.lanes + self.cce_lanes
+        # assemble the device batch
+        B = len(all_lanes)
+        core = dict(coeffs=np.zeros((B, 1024), np.float32),
+                    ws=np.zeros(B, np.int32), wsp=np.zeros(B, np.int32),
+                    kbd=np.zeros(B, np.int32), kbdp=np.zeros(B, np.int32))
+        for i, lane in enumerate(all_lanes):
+            el = self.elements[(lane.elem_type, lane.elem_id)]
+            cd = el.cur[lane.ch]
+            if cd.coeffs is None or not el.present_this_frame:
+                continue
+            core["coeffs"][i] = cd.coeffs
+            core["ws"][i] = cd.ics.window_sequence
+            core["wsp"][i] = cd.ics.window_sequence_prev
+            core["kbd"][i] = cd.ics.use_kb_window
+            core["kbdp"][i] = cd.ics.use_kb_window_prev
+        multiplier = (m.ext_sample_rate > m.sample_rate) if m.sbr == 1 else 0
+        samples = 1024 << multiplier
+        jobs = self._sbr_jobs(all_lanes) if m.sbr == 1 else []
+        edges = _point3_edges(self, {(ln.elem_type, ln.elem_id, ln.ch): i
+                                     for i, ln in enumerate(all_lanes)})
+        dev = self.device
+        groups = dict(core=core)
+        for j, job in enumerate(jobs):
+            groups[f"sbr{j}"] = job["plan"]
+            if job["ps"] is not None:
+                groups[f"ps{j}"] = job["ps"]
+        up = _upload(groups, dev)
+        if self.saved is None or len(self.saved) != B:
+            self.saved = torch.zeros((B, 512), device=dev)
+        c = up["core"]
+        time_out, self.saved = core_frame(c["coeffs"], self.saved, c["ws"],
+                                          c["wsp"], c["kbd"], c["kbdp"],
+                                          *core_consts(dev))
+        ret = torch.cat([time_out, torch.zeros_like(time_out)], 1)
+        for j, job in enumerate(jobs):
+            self._apply_sbr(ret, job, up[f"sbr{j}"], up.get(f"ps{j}"))
+        # independent coupling AFTER_IMDCT (aacdec.c:1849-1862)
+        if edges:
+            src = ret
+            ret = ret.clone()
+            for tgt, lane, gain in edges:
+                ret[tgt] += gain * src[lane]
+        self.sample_rate = m.sample_rate << multiplier
+        pcm = torch.clamp(torch.round(ret[:len(self.lanes), :samples]),
+                          -32768, 32767).to(torch.int16)
+        return pcm.T.cpu()   # [samples, channels]
+
+    def _sbr_jobs(self, all_lanes) -> list:
+        """The host half of ``_apply_sbr`` for every element that runs SBR
+        this frame (aacdec.c:1924-1926), in lane order: its lanes and its
+        SBR and PS plans, the parsed contexts advanced as the reference
+        advances them."""
+        lane_of = {(ln.elem_type, ln.elem_id, ln.ch): i
+                   for i, ln in enumerate(all_lanes)}
+        done = set()
+        jobs = []
+        for lane in all_lanes:
+            key = (lane.elem_type, lane.elem_id)
+            if key in done:
+                continue
+            el = self.elements[key]
+            if key[0] == T.TYPE_CCE:
+                # only AFTER_IMDCT CCEs run the filterbank + SBR (pure
+                # upsampling: their sbr ctx never starts); dependent CCEs
+                # feed targets pre-IMDCT and their ret is never read
+                # (aacdec.c:1919-1926)
+                if el.coup is None or el.coup.coupling_point != 3:
+                    continue
+            done.add(key)
+            if not el.present_this_frame:
+                continue
+            if el.sbr is None:
+                el.sbr = SBRContext()
+            if not el.sbr.sample_rate:
+                el.sbr.sample_rate = 2 * self.m4ac.sample_rate
+            if not self.m4ac.ext_sample_rate:
+                self.m4ac.ext_sample_rate = 2 * self.m4ac.sample_rate
+            nch = 2 if key[0] == T.TYPE_CPE else 1
+            # a CPE's two lanes, or a mono element's one and, with PS, two
+            lanes = [lane_of[key + (ch,)] for ch in (0, 1)
+                     if key + (ch,) in lane_of]
+            job = dict(key=key, nch=nch, lanes=lanes,
+                       downsampled=(self.m4ac.ext_sample_rate
+                                    < el.sbr.sample_rate),
+                       plan=sbr_single.prepare(el.sbr, key[0], nch),
+                       ps=None, stereo=self.m4ac.ps == 1)
+            if job["stereo"] and el.sbr.ps is not None and el.sbr.ps.start:
+                job["ps"] = ps_single.prepare(el.sbr.ps,
+                                              el.sbr.kx[1] + el.sbr.m[1])
+            jobs.append(job)
+        return jobs
+
+    def _apply_sbr(self, ret, job, plan, ps_plan) -> None:
+        """The device half for one element (``sbr_np.sbr_apply`` with
+        ``ps_np.ps_apply``): its core samples from ``ret`` [B,2048] in,
+        its SBR output rows written back in place."""
+        el = self.elements[job["key"]]
+        st = getattr(el.sbr, "dev", None)       # beside the parsed context
+        if st is None or st.x_hist.shape[0] != job["nch"]:
+            st = el.sbr.dev = sbr_single.SbrState.zeros(job["nch"],
+                                                        self.device)
+        lanes = job["lanes"]
+        x = ret[lanes[:job["nch"]], :1024]
+        ps_apply = None
+        if ps_plan is not None:
+            ps = el.sbr.ps
+            if getattr(ps, "dev", None) is None:
+                ps.dev = ps_single.PsState.zeros(self.device)
+            ps_apply = lambda X: ps_single.ps_apply(  # noqa: E731
+                ps.dev, X[:1], ps_plan)
+        elif job["stereo"]:
+            ps_apply = lambda X: (X[:1], X[:1])  # noqa: E731
+        out = sbr_single.sbr_apply(el.sbr, st, x, plan, job["downsampled"],
+                                   ps_apply)
+        ret[lanes, :out.shape[1]] = out[:len(lanes)]
 
     def _apply_dependent_coupling_stage(self, coupling_point: int,
                                         before_tns: bool) -> None:

@@ -1,7 +1,8 @@
 """The Python qwire planner: one stream -> per-frame qwire lanes (host).
 
 Port copy of ``heaac_tpu/codec/batch.py``: _host_couple_and_tns
-(23-43), _point3_edges (52-86), _point3_edges_sub (87-124),
+(23-43) and _point3_edges (52-86), which live in ``codec/decoder.py``
+(the single-stream decoder runs them too), _point3_edges_sub (87-124),
 _couple_series (125-139), _align_union_layout (140-175),
 QwirePlanningDecoder (413-655), parse_stream_qwire (657-727) and
 LcPlanningDecoder (1535-1567); names as there.  The planner parses with
@@ -26,62 +27,7 @@ from ..bitstream.sbr_syntax import SBRContext
 from ..host import silence_lane, split_adts_stream
 from ..ops.spec_huff import SFB
 from . import qwire_host as QH
-from .decoder import Decoder
-
-
-def _host_couple_and_tns(dec) -> None:
-    """Dependent channel coupling + TNS in reference order (host side,
-    aacdec.c:1870-1898 stages 0/1), for both planners.  AFTER_IMDCT
-    (point 3) coupling mixes decoded time signals: the qwire and LC
-    paths mix it on the device over extra CCE lanes
-    (``_point3_edges_sub``, ``_point3_edges``); the JAX package's
-    ``raise_point3`` branch serves only its dense-plan planner, which
-    is not ported."""
-    dec._apply_dependent_coupling_stage(0, before_tns=True)
-    for lane in dec.lanes + dec.cce_lanes:
-        el = dec.elements[(lane.elem_type, lane.elem_id)]
-        cd = el.cur[lane.ch]
-        if el.present_this_frame and cd.coeffs is not None \
-                and cd.tns.present:
-            syn.apply_tns(cd.coeffs, cd)
-            cd.tns = syn.TnsData()
-    dec._apply_dependent_coupling_stage(1, before_tns=False)
-
-
-def _point3_edges(dec, lane_index_of) -> list:
-    """This frame's AFTER_IMDCT coupling edges [(tgt_lane, src_lane,
-    gain)] over the LC planner's lanes (``lane_index_of``: (etype, eid,
-    ch) -> lane), mirroring decoder._apply_independent_coupling
-    (aacdec.c:1849-1862)."""
-    edges = []
-    for key, el in dec.elements.items():
-        if key[0] != T.TYPE_CCE or el.coup is None \
-                or not el.present_this_frame \
-                or el.coup.coupling_point != 3:
-            continue
-        src = lane_index_of.get((T.TYPE_CCE, key[1], 0))
-        if src is None:
-            continue
-        coup = el.coup
-        index = 0
-        for c in range(coup.num_coupled + 1):
-            tkey = (coup.type[c], coup.id_select[c])
-            ch_sel = coup.ch_select[c]
-            if dec.elements.get(tkey) is None:
-                index += 1 + (ch_sel == 3)
-                continue
-            if ch_sel != 1:
-                li = lane_index_of.get((tkey[0], tkey[1], 0))
-                if li is not None:
-                    edges.append((li, src, float(coup.gain[index][0])))
-                if ch_sel != 0:
-                    index += 1
-            if ch_sel != 2:
-                li = lane_index_of.get((tkey[0], tkey[1], 1))
-                if li is not None:
-                    edges.append((li, src, float(coup.gain[index][0])))
-                index += 1
-    return edges
+from .decoder import Decoder, _host_couple_and_tns, _point3_edges
 
 
 def _point3_edges_sub(dec, qpos) -> list:
@@ -181,7 +127,7 @@ class QwirePlanningDecoder(Decoder):
     dequantization skipped — the device performs sbr_dequant/mapping/chirp."""
 
     def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
+        super().__init__(*a, device=None, **kw)   # parses only
         self.frames_q = []   # per frame: list of per-lane (payload, rec)
         self.ps_is34 = None
         self.downsampled = 0
@@ -483,7 +429,7 @@ class LcPlanningDecoder(Decoder):
     src_lane, gain)] the device mixes after the scan."""
 
     def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
+        super().__init__(*a, device=None, **kw)   # parses only
         self.frames_core = []
         self.frames_couple = []
 

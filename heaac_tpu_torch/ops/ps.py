@@ -1,9 +1,11 @@
 """Batched parametric stereo (20- and 34-band modes).
 
 Counterpart: ``heaac_tpu/ops/ps_jax.py`` — hybrid_analysis,
-decorrelate_and_mix, hybrid_synthesis (aacps.c:283-992) and the band-mode
-flip conversions map_val_20_to_34 / map_val_34_to_20 (aacps.c:829-860).  The serial
-transient detector + allpass chain inside ``decorrelate_and_mix`` is
+decorrelate_and_mix (here its two halves ``decorrelate`` and
+``stereo_mix``, which the single-stream PS of ``ops/ps_single.py``
+also calls), hybrid_synthesis (aacps.c:283-992) and the band-mode flip
+conversions map_val_20_to_34 / map_val_34_to_20 (aacps.c:829-860).  The
+serial transient detector + allpass chain inside ``decorrelate`` is
 kernel K1 (``ops/ps_decorrelate.py``) in both modes: 30 allpass bands
 at is34=0, 50 at is34=1.  (The JAX package runs the 50-band case through
 its lax.scan pair, ``ps_jax._decorrelate_scans``: the Pallas kernel's
@@ -101,17 +103,17 @@ def hybrid_analysis(L, in_buf, is34: int = 0):
     return torch.stack([lbuf_re, lbuf_im], -1), full[:, :, 32:38]
 
 
-def decorrelate_and_mix(lbuf, state, plan, is34: int = 0):
-    """Transient detection, allpass decorrelation (K1), stereo mix.
-
-    lbuf [B,91,32,2]; state dict delay [B,91,14,2], ap [B,50,3,5,2],
-    trans [B,34,3]; plan H [B,2,6,34,4], Ws/We [B,6,32], ipd_on [B],
-    top_mask [B,91] -> (lmix, rmix [B,91,32,2], new_state)."""
+def decorrelate(lbuf, state, top_mask, is34: int = 0):
+    """Transient detection and allpass decorrelation (K1) of the
+    reference's decorrelation (aacps.c:645-754): lbuf [B,91,32,2]; state
+    dict delay [B,91,14,2], ap [B,50,3,5,2], trans [B,34,3]; top_mask
+    [B,91] zeroes the delay lines above the SBR top (ff_ps_apply) ->
+    (rbuf [B,91,32,2], new_state)."""
     c = consts(is34, lbuf.device)
     napb = c["napb"]
-    tm = plan["top_mask"][:, :, None, None]
+    tm = top_mask[:, :, None, None]
     delay_hist = state["delay"] * tm
-    ap = state["ap"][:, :napb] * plan["top_mask"][:, :napb, None, None, None]
+    ap = state["ap"][:, :napb] * top_mask[:, :napb, None, None, None]
 
     power = torch.einsum("bkn,ki->bin", lbuf[..., 0] ** 2 + lbuf[..., 1] ** 2,
                          c["agg"])                            # [B,34,32]
@@ -135,6 +137,17 @@ def decorrelate_and_mix(lbuf, state, plan, is34: int = 0):
     out_rest = torch.cat([d14, d1], 1) * tgain_k[:, napb:, :, None]
     rbuf = torch.cat([out_ap, out_rest], 1)                   # [B,91,32,2]
 
+    if napb < 50:  # the state keeps the 34-band row count
+        ap_new = torch.cat([ap_new, state["ap"][:, napb:]], 1)
+    return rbuf, dict(delay=new_delay, ap=ap_new, trans=ntrans)
+
+
+def stereo_mix(lbuf, rbuf, plan, is34: int = 0):
+    """The interpolated 2x2 mix of the reference's stereo processing
+    (aacps.c:903-971): plan H [B,2,6,34,4] (per envelope border, real and
+    imaginary), Ws/We [B,6,32] (each slot's weights of the borders before
+    and after it), ipd_on [B] -> (lmix, rmix [B,91,32,2])."""
+    c = consts(is34, lbuf.device)
     Ws, We = plan["Ws"], plan["We"]
     h_re = torch.einsum("ben,bedj->bndj", Ws + We, plan["H"][:, 0])
     h_im_pos = torch.einsum("ben,bedj->bndj", Ws + We, plan["H"][:, 1])
@@ -156,12 +169,18 @@ def decorrelate_and_mix(lbuf, state, plan, is34: int = 0):
     lm_im = h11r * l_im + h21r * r_im + h11i * l_re + h21i * r_re
     rm_re = h12r * l_re + h22r * r_re - h12i * l_im - h22i * r_im
     rm_im = h12r * l_im + h22r * r_im + h12i * l_re + h22i * r_re
+    return torch.stack([lm_re, lm_im], -1), torch.stack([rm_re, rm_im], -1)
 
-    if napb < 50:  # the state keeps the 34-band row count
-        ap_new = torch.cat([ap_new, state["ap"][:, napb:]], 1)
-    new_state = dict(delay=new_delay, ap=ap_new, trans=ntrans)
-    return (torch.stack([lm_re, lm_im], -1), torch.stack([rm_re, rm_im], -1),
-            new_state)
+
+def decorrelate_and_mix(lbuf, state, plan, is34: int = 0):
+    """Transient detection, allpass decorrelation (K1), stereo mix.
+
+    lbuf [B,91,32,2]; state dict delay [B,91,14,2], ap [B,50,3,5,2],
+    trans [B,34,3]; plan H [B,2,6,34,4], Ws/We [B,6,32], ipd_on [B],
+    top_mask [B,91] -> (lmix, rmix [B,91,32,2], new_state)."""
+    rbuf, new_state = decorrelate(lbuf, state, plan["top_mask"], is34)
+    lmix, rmix = stereo_mix(lbuf, rbuf, plan, is34)
+    return lmix, rmix, new_state
 
 
 def hybrid_synthesis(buf, is34: int = 0):

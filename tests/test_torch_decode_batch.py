@@ -5,10 +5,12 @@ the IMDCT or before TNS, AAC-LC and a buffer with no sync word,
 interleaved) against the committed JAX golden
 (tests/data/decode_batch_golden_jax.npz, written by that tool; JAX does
 not run here), within 2 int16 LSB, each output in its input's place;
-streams the port cannot take (what the JAX package decodes with its
-single-stream decoder) raise NotImplementedError naming them, also when
-a flip stream's flip decode fails; the ADTS splitter equals the JAX
-package's."""
+a stream no batched route takes (and a flip stream whose flip decode
+fails) falls back to the single-stream decoder, as in the JAX package,
+and matches the JAX Decoder's golden (tests/data/single_golden_jax.npz);
+the ADTS splitter equals the JAX package's."""
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -52,39 +54,73 @@ def test_decode_batch_cpu_matches_golden():
         assert np.abs(got - want).max() <= TOL_LSB, name
 
 
-def test_decode_batch_names_the_stream_it_cannot_take():
+def _single_golden(name: str, frames: int):
+    tool = golden_tool()
+    with np.load(tool.SINGLE_GOLDEN) as z:
+        return z[f"pcm_{name}"][:frames * 2048].astype(np.int32)
+
+
+def _fallbacks(caplog) -> list:
+    return [r.getMessage() for r in caplog.records
+            if "fell back to the single-stream decoder" in r.getMessage()]
+
+
+def test_decode_batch_names_the_stream_it_cannot_take(caplog):
     """A 20-band stream whose frame 0 has a corrupted byte: the native
-    probe refuses it, the Python prober cannot parse frame 0 (an AAC-LC
-    bucket), and the LC planner fails on it; the JAX package decodes it
-    with its single-stream decoder (its golden records the fallback),
-    which is not ported."""
+    probe refuses it, the Python prober cannot decode frame 0 (an AAC-LC
+    bucket), and the LC planner fails on it; decode_batch falls back to
+    the single-stream decoder, which drops frame 0 and decodes the rest,
+    as the JAX decode_batch does (its golden records the fallback)."""
     tool = golden_tool()
     with np.load(tool.LC_GOLDEN) as z:
         assert int(z["single_he20_f0_0"]) == 1
     streams = [b"no sync word here", _head(streams_of("he20", 1)[0], 4),
-               tool.corrupted("he20_f0_0")]
-    with pytest.raises(NotImplementedError, match=r"^stream 2:") as ei:
-        decode_batch(streams, device="cpu")
-    assert ei.value.__cause__ is not None
+               _head(tool.corrupted("he20_f0_0"), 4)]
+    caplog.set_level(logging.INFO, logger="heaac_tpu_torch")
+    outs = decode_batch(streams, device="cpu")
+    assert [m.split(":")[1] for m in _fallbacks(caplog)] == [" stream 2 fell "
+                                                             "back to the "
+                                                             "single-stream "
+                                                             "decoder"]
+    stats = [r.single_stats for r in caplog.records
+             if hasattr(r, "single_stats")]
+    assert [(st["stream"], st["frames"], st["dropped"]) for st in stats] \
+        == [(2, 4, 1)]
+    assert tuple(outs[0].shape) == (0, 1)
+    assert tuple(outs[1].shape) == (4 * 2048, 2)
+    want = _single_golden("he20_f0_0", 3)
+    assert isinstance(outs[2], torch.Tensor) and outs[2].dtype == torch.int16
+    assert tuple(outs[2].shape) == want.shape
+    assert np.abs(want).max() > 1000
+    assert np.abs(outs[2].numpy().astype(np.int32) - want).max() <= TOL_LSB
 
 
-def test_failed_flip_decode_names_the_stream(monkeypatch):
+def test_failed_flip_decode_names_the_stream(monkeypatch, caplog):
     """A flip stream fails its batched decode on the band-mode flip; when
-    its flip decode fails too, decode_batch raises NotImplementedError
-    naming the stream, chained to that failure and not raised while
-    handling it."""
+    its flip decode fails too, decode_batch logs both, naming the stream,
+    and decodes it with the single-stream decoder, as the JAX package
+    does: within 2 int16 LSB of the JAX Decoder's golden."""
     cause = RuntimeError("flip decode failed")
 
     def fail(*a, **kw):
         raise cause
 
     monkeypatch.setattr(batch, "decode_qwire_flip_stream", fail)
+    frames = 8                           # flip stream 0 flips at frame 6
     streams = [_head(streams_of("he20", 1)[0], 4),
-               _head(streams_of("flip", 4)[3], 4)]
-    with pytest.raises(NotImplementedError, match=r"^stream 1:") as ei:
-        decode_batch(streams, device="cpu")
-    assert ei.value.__cause__ is cause
-    assert ei.value.__suppress_context__ and ei.value.__context__ is None
+               _head(streams_of("flip", 1)[0], frames)]
+    caplog.set_level(logging.INFO, logger="heaac_tpu_torch")
+    outs = decode_batch(streams, device="cpu")
+    msgs = [r.getMessage() for r in caplog.records]
+    assert "decode_batch: flip-scan decode of stream 1 failed (RuntimeError: " \
+        "flip decode failed); using the single-stream decoder" in msgs
+    assert _fallbacks(caplog) == [
+        "decode_batch: stream 1 fell back to the single-stream decoder: "
+        "NotImplementedError: PS band mode changes mid-stream"]
+    want = _single_golden("flip_0", frames)
+    assert tuple(outs[1].shape) == want.shape
+    assert np.abs(outs[1].numpy().astype(np.int32) - want).max() <= TOL_LSB
+    assert tuple(outs[0].shape) == (4 * 2048, 2)
 
 
 @pytest.mark.parametrize("case", ["clean", "leading_garbage",

@@ -6,7 +6,8 @@ decode_batch on the card against its CPU run for a stream of each kind,
 a stream whose PS band mode flips through the flip scan, AAC-LC streams
 with a coupling channel (the LC planner and the coupled LC scan) beside
 an HE stream the native probe refuses (the Python prober and profile
-parse), and the downsampled-SBR scan.
+parse), the downsampled-SBR scan, and the single-stream Decoder
+(``decode_adts``; K1 at one lane).
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from heaac_tpu_torch import decode_batch
+from heaac_tpu_torch import Decoder, decode_adts, decode_batch
 from heaac_tpu_torch.codec import heaac_graph
 from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
                                          decode_qwire_flip_stream,
@@ -119,7 +120,8 @@ def test_lc_planner_and_prober_on_card_match_cpu(cuda):
     """Two AAC-LC + CCE streams (after the IMDCT, before TNS) and a
     20-band stream with a corrupted frame 1 (the Python prober, then the
     Python profile parse), 8 frames each: within 2 LSB of the CPU, K1
-    once per frame of the HE bucket."""
+    once per frame of the HE bucket and once for the prober's decode of
+    the probed stream's frame 0 (PS runs there)."""
     tool = golden_tool()
     streams = [b"".join(split_adts_stream(tool.named_stream(name))[:8])
                for name in ("he20_f1_0", "lc_cce_after_0",
@@ -127,7 +129,7 @@ def test_lc_planner_and_prober_on_card_match_cpu(cuda):
     before = dict(K.launches)
     gpu = decode_batch(streams)
     assert {napb: K.launches[napb] - before[napb] for napb in before} == {
-        30: 8, 50: 0}
+        30: 9, 50: 0}
     cpu = decode_batch(streams, device="cpu")
     for g, c, shape in zip(gpu, cpu, ((8 * 2048, 2), (8 * 1024, 1),
                                       (8 * 1024, 1))):
@@ -163,3 +165,34 @@ def test_downsampled_scan_on_card_matches_cpu(cuda):
     assert gpu.shape == cpu.shape == (8, 2, 2, 1024)
     assert np.abs(cpu).max() > 1000
     assert np.abs(gpu.astype(np.int32) - cpu).max() <= 2
+
+
+def test_single_decoder_on_card_matches_cpu(cuda):
+    """The single-stream Decoder on the card (``decode_adts``, and
+    ``Decoder(asc=)`` for downsampled SBR), 6 frames of a 20-band and a
+    34-band HE-AAC v2 stream, a stereo HE-AAC v1 stream and a
+    downsampled stream: within 2 LSB of the CPU; K1 at one lane once per
+    frame in which PS runs (6 at napb 30 for the 20-band and the
+    downsampled stream, 6 at napb 50)."""
+    tool = golden_tool()
+    heads = {name: split_adts_stream(tool.single_stream(name))[:6]
+             for name in ("he20_0", "he34_0", "he_v1s_1", "ds_0")}
+    with open(f"{tool.REPO}/{tool.DS_ASC}", "rb") as f:
+        asc = f.read()
+
+    def run(name, dev):
+        if name == "ds_0":
+            dec = Decoder(asc=asc, device=dev)
+            return torch.cat([dec.decode_frame(fr[7:]) for fr in heads[name]])
+        return decode_adts(b"".join(heads[name]), device=dev)[0]
+
+    before = dict(K.launches)
+    gpu = {name: run(name, cuda) for name in heads}
+    assert {napb: K.launches[napb] - before[napb] for napb in before} == {
+        30: 12, 50: 6}
+    for name, g in gpu.items():
+        c = run(name, "cpu")
+        assert g.device.type == "cpu" and g.dtype == torch.int16
+        assert tuple(g.shape) == tuple(c.shape)
+        assert int(c.abs().max()) > 1000
+        assert int((g.int() - c.int()).abs().max()) <= 2, name

@@ -9,7 +9,9 @@ coupling-channel stream (8 frames, a flip at frame 6), against the JAX
 golden (tests/data/flip_golden_jax.npz); then decode_batch on an AAC-LC
 stream with a coupling channel (the LC planner, 4 frames) and the
 downsampled scan on a downsampled-SBR stream parsed with its
-AudioSpecificConfig (4 frames), against their JAX goldens."""
+AudioSpecificConfig (4 frames), against their JAX goldens; then
+``decode_adts`` (the single-stream Decoder) on two frames of a benchdata
+stream against the JAX Decoder's golden (tests/data/single_golden_jax.npz)."""
 import os
 import subprocess
 import sys
@@ -75,6 +77,13 @@ ddiff = int(np.abs(dpcm.numpy()[:, 0].astype(np.int32)
                    - dgold[:4, 0]).max())
 print("LCDS", tuple(lout.shape), tuple(dpcm.shape),
       max(ldiff, ddiff) <= 2 and int(dpcm.abs().max()) > 1000)
+from heaac_tpu_torch import decode_adts
+head = b"".join(split_adts_stream(data)[:2])
+spcm, srate = decode_adts(head, device="cpu")
+sgold = np.load(REPO + "/tests/data/single_golden_jax.npz")["pcm_he20_0"]
+sdiff = int(np.abs(spcm.numpy().astype(np.int32) - sgold[:len(spcm)]).max())
+print("SINGLE", tuple(spcm.shape), srate,
+      sdiff <= 2 and int(spcm.abs().max()) > 1000)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -99,3 +108,5 @@ def test_port_decodes_without_jax():
     assert flip == "FLIP [(8192, 2), (16384, 2)] True", flip
     lcds = [x for x in r.stdout.splitlines() if x.startswith("LCDS")][0]
     assert lcds == "LCDS (4096, 1) (4, 1, 2, 1024) True", lcds
+    single = [x for x in r.stdout.splitlines() if x.startswith("SINGLE")][0]
+    assert single == "SINGLE (4096, 2) 48000 True", single

@@ -2,8 +2,9 @@
 on the CPU.
 
 decode_batch buckets a stream its native probe refuses by the Python
-prober (``codec.batch._python_probe``: the first frame through the
-parsing half of ``Decoder``); its (SBR, 34-band PS) equals the JAX
+prober (``codec.batch._python_probe``: the first frame decoded by the
+single-stream ``Decoder``, here on the CPU); its (SBR, 34-band PS)
+equals the JAX
 decode_batch's Python probe (``Decoder.decode_frame`` of the first
 frame) on every committed stream and on the corrupted ones of
 tools/make_torch_golden.py, as stored in tests/data/prober_golden_jax.npz.
@@ -35,7 +36,7 @@ def test_python_probe_matches_jax(group):
                                            and name in tool.CORRUPT)]
     assert len(named) >= 5 and {name for name, _ in named} <= set(want)
     for name, data in named:
-        got = _python_probe(data)
+        got = _python_probe(data, "cpu")
         assert tuple(map(int, got)) == want[name], name
         if group == "corrupt":
             assert native.Parser().probe(

@@ -40,7 +40,7 @@ def test_decode_spec_bitwise(frame):
 def _ms_lanes():
     """8 M/S pair lanes of stereo streams 0 (long windows) and 1
     (window-switched: EIGHT_SHORT), 4 of each, with the JAX reference
-    run once, eagerly, over all 8 -> (parse, rec [8, 4], w3 [8], short
+    run once, jitted, over all 8 -> (parse, rec [8, 4], w3 [8], short
     [8] bool, (coeffs, mask) of the reference)."""
     p = port_parse(2, 8, "he_v1s")
     assert p["MS"] == 1
@@ -53,10 +53,10 @@ def _ms_lanes():
                            np.flatnonzero(ms & short)[:4]])
     assert len(pick) == 8
     rec, w3 = rec[pick], w3[pick]
-    ref = jsp.decode_spec_jax(
+    ref = jit_ref(jsp.decode_spec_jax, sampling_index=p["rate_idx"],
+                  NBITS=p["NB"], with_ms=True, NS=p["NS"], SEC=p["SEC"])(
         jnp.asarray(p["heap"].astype(np.int32)), jnp.asarray(rec[:, 0]),
-        jnp.asarray(w3), p["rate_idx"], p["NB"], with_ms=True, NS=p["NS"],
-        SEC=p["SEC"])
+        jnp.asarray(w3))
     return p, rec, w3, short[pick], (n(ref[0]), n(ref[1]))
 
 

@@ -3,9 +3,9 @@
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir [name ...]]
 
-Writes eight files into tests/data (or out_dir), all from the JAX
+Writes nine files into tests/data (or out_dir), all from the JAX
 package on the CPU; with names (scan, batch, stereo, qwire, flip, lc,
-probe, ds) only those:
+probe, ds, single) only those:
 
   heaac_v2_golden_jax.npz      benchdata/heaac_bench_stream_{0,1}.aac
       parsed by its QwirePipelinedDecoder and decoded by its qwire scan,
@@ -75,6 +75,14 @@ probe, ds) only those:
       [FRAMES, 4, 2, 1024]; ``carry_mid/...``, ``carry_end/...``); and
       the max LSB between that and its dense ``StreamBatchDecoder(asc=)``
       over the same frames (``dense_lsb``).
+  single_golden_jax.npz  its single-stream ``Decoder`` (default parser
+      choice, as its ``decode_batch`` builds it) over ``SINGLE_LIST``,
+      first FRAMES ADTS frames each through ``Decoder.decode``; the
+      downsampled stream ``heaac_ds_0`` through ``Decoder(asc=)
+      .decode_frame`` of each frame's raw data block: ``names``, and per
+      name ``pcm_{name}`` (int16 [n, ch]), ``errors_{name}`` (its
+      ``error_count``), ``rate_{name}`` (its output rate) and
+      ``ps_{name}`` ([frames whose PS ran in 20 bands, in 34 bands]).
 
 The 34-band, stereo, CCE, flip, LC + CCE and downsampled streams come
 from tools/make_torch_streams.py.
@@ -87,7 +95,8 @@ tests/test_torch_flip.py and chip_smoke.py phase 7 hold the flip path
 to the fifth; tests/test_torch_lc_planner.py and chip_smoke.py phase 8
 hold the LC planner, the prober and the profile parse to the sixth and
 seventh, tests/test_torch_downsampled.py and phase 8 the downsampled
-scan to the eighth.
+scan to the eighth, tests/test_torch_single.py and phase 9 the port's
+single-stream Decoder to the ninth.
 """
 import os
 import sys
@@ -153,7 +162,24 @@ LC_LIST = ("he20_f1_0", "lc_cce_after_0", "lc_cce_before_0",
            "lc_cce_after_1", "lc_cce_before_1", "he20_f1_1",
            "lc_cce_after_2", "lc_cce_before_2", "lc_cce_after_3",
            "lc_cce_before_3")
+# streams whose JAX decode_batch falls back to its single-stream Decoder
 UNPORTED = ("he20_f0_0",)
+SINGLE_GOLDEN = os.path.join(DATA, "single_golden_jax.npz")
+# the single-stream Decoder's streams: CORRUPT keys, or files relative to
+# the repo; frame 0 of the two CORRUPT ones is dropped and PS never starts
+SINGLE_LIST = (
+    ("he20_f0_0", None),
+    ("he34_f0_0", None),
+    ("he20_0", "benchdata/heaac_bench_stream_0.aac"),
+    ("he34_0", "tests/data/heaac_v2_34band_0.aac"),
+    ("flip_0", "tests/data/heaac_v2_flip_0.aac"),
+    ("he_v1s_1", STEREO_FILE.format(1)),
+    ("cce_after_0", "tests/data/heaac_cce_after_0.aac"),
+    ("cce_before_0", "tests/data/heaac_cce_before_0.aac"),
+    ("lc_cce_after_0", "tests/data/lc_cce_after_0.aac"),
+    ("lc_0", "benchdata/lc_core_24k_0.aac"),
+    ("ds_0", DS_FILE.format(0)),
+)
 
 
 def batch_streams(repo: str = REPO) -> list:
@@ -662,10 +688,65 @@ def write_batch_golden(out: str) -> None:
         for k, name in enumerate(z["names"])))
 
 
+def single_stream(name: str, repo: str = REPO) -> bytes:
+    """A SINGLE_LIST stream's bytes."""
+    rel = dict(SINGLE_LIST)[name]
+    if rel is None:
+        return corrupted(name, repo)
+    with open(os.path.join(repo, rel), "rb") as f:
+        return f.read()
+
+
+def single_golden() -> dict:
+    sys.path.insert(0, REPO)
+    from heaac_tpu.bitstream.adts import split_adts_stream
+    from heaac_tpu.codec.decoder import Decoder
+    from heaac_tpu.ops import ps_np
+    runs = []
+    real = ps_np.ps_apply
+
+    def spy(ps, X, top):
+        runs.append(int(ps.is34bands))
+        return real(ps, X, top)
+
+    ps_np.ps_apply = spy
+    z = {"names": np.array([name for name, _ in SINGLE_LIST])}
+    try:
+        for name, _ in SINGLE_LIST:
+            frames = split_adts_stream(single_stream(name))[:FRAMES]
+            runs.clear()
+            if name == "ds_0":
+                with open(os.path.join(REPO, DS_ASC), "rb") as f:
+                    dec = Decoder(asc=f.read())
+                pcm = np.concatenate([dec.decode_frame(f[7:])
+                                      for f in frames])
+            else:
+                dec = Decoder(adts_probe=frames[0][:7])
+                pcm = dec.decode(b"".join(frames))
+            z[f"pcm_{name}"] = np.asarray(pcm, np.int16)
+            z[f"errors_{name}"] = np.int64(dec.error_count)
+            z[f"rate_{name}"] = np.int64(dec.sample_rate)
+            z[f"ps_{name}"] = np.array([runs.count(0), runs.count(1)])
+    finally:
+        ps_np.ps_apply = real
+    return z
+
+
+def write_single_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(SINGLE_GOLDEN))
+    z = single_golden()
+    np.savez_compressed(path, **z)
+    print(f"wrote {path}: " + ", ".join(
+        f"{n} {z[f'pcm_{n}'].shape} errors {int(z[f'errors_{n}'])} "
+        f"rate {int(z[f'rate_{n}'])} ps {z[f'ps_{n}'].tolist()}"
+        for n in z["names"]))
+
+
 WRITERS = {"scan": write_scan_golden, "batch": write_batch_golden,
            "stereo": write_stereo_golden, "qwire": write_qwire_golden,
            "flip": write_flip_golden, "lc": write_lc_golden,
-           "probe": write_probe_golden, "ds": write_ds_golden}
+           "probe": write_probe_golden, "ds": write_ds_golden,
+           "single": write_single_golden}
 
 
 def main() -> None:
