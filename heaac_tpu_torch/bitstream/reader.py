@@ -1,5 +1,4 @@
-"""Port copy of ``heaac_tpu/bitstream/reader.py`` (lines 1-59, without
-TracingBitReader: the port's Decoder takes no reader class), numpy only:
+"""Port copy of ``heaac_tpu/bitstream/reader.py``, numpy only:
 the port imports nothing of the JAX package, so it keeps its own copy of
 the host parser (tables from ``heaac_tpu_torch.tables``).  Names as
 there.
@@ -59,3 +58,32 @@ class BitReader:
 
 class BitstreamError(ValueError):
     """Raised on malformed bitstream input (maps to reference's -1 returns)."""
+
+
+class TracingBitReader(BitReader):
+    """Bit-level trace reader — analogue of the reference's TRACE-gated
+    get_bits_trace (get_bits.h:620-663): every read is reported with its
+    bit position, width, and value via a callback.  Debug aid for bitstream
+    work; install with ``Decoder(..., bitreader_cls=TracingBitReader)`` or
+    the CLI ``--bit-trace``."""
+    __slots__ = ("sink",)
+
+    def __init__(self, data: bytes, start_bit: int = 0, sink=None):
+        super().__init__(data, start_bit)
+        self.sink = sink
+
+    def get(self, n: int) -> int:
+        pos = self.pos
+        v = super().get(n)
+        (self.sink or _default_sink)(pos, n, v)
+        return v
+
+    def skip(self, n: int) -> None:
+        # VLC decode consumes via show+skip; log the skipped bits too
+        (self.sink or _default_sink)(self.pos, n, self.show(n))
+        super().skip(n)
+
+
+def _default_sink(pos: int, n: int, v: int) -> None:
+    import sys
+    print(f"bit {pos:7d}: {n:2d} -> {v:#x}", file=sys.stderr)

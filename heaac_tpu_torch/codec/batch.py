@@ -43,7 +43,6 @@ Differences from the JAX package:
 from __future__ import annotations
 
 import ctypes as C
-import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -56,13 +55,12 @@ from ..device import resolve
 from ..host import (R_TOKOFF, R_W1, REC_W, count_adts_frames,
                     parse_adts_header, pce_lanes, rows_pair_static,
                     silence_lane, spec_static_args, split_adts_stream)
+from ..utils.metrics import log
 from .heaac_graph import (init_qwire_carry, init_qwire_flip_carry,
                           lc_scan_decode, qwire_scan_decode,
                           qwire_scan_decode_flip)
 from .decoder import Decoder
 from .planner import LcPlanningDecoder, parse_stream_qwire
-
-log = logging.getLogger("heaac_tpu_torch")
 
 
 def _layout_lanes(chan_config: int) -> int:

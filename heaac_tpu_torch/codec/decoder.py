@@ -5,11 +5,14 @@ __init__, _configure, _configure_from_pce, decode_frame, decode,
 _get_che, _parse_raw_data_block, _decode_cpe, _skip_dse,
 _decode_extension, _spectral_to_sample, _apply_sbr,
 _apply_dependent_coupling_stage and _fan_out_coupling, names as there;
+_apply_native_meta, _native_sce and _native_cpe;
 _apply_independent_coupling's loop is ``_point3_edges`` (with
 ``_host_couple_and_tns``, from ``heaac_tpu/codec/batch.py``, shared
-with the planners).  It parses with the Python
-element parser only (the JAX package's native per-element path is not
-ported: its planner turns it off).
+with the planners).  As there, SCE / CPE elements parse in the native
+per-element parser (``native.Parser.parse_sce`` / ``parse_cpe``) from
+frame 1 on unless a dependent coupling channel is present; frame 0, a
+``bitreader_cls`` (the bit tracer) and ``use_native=False`` parse in
+Python.
 
 The host parses, applies dependent coupling and TNS to the spectra, and
 does the parameter math that depends only on the bitstream
@@ -26,12 +29,12 @@ device and override ``_spectral_to_sample``.
 from __future__ import annotations
 
 import copy
-import logging
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import native
 from .. import tables as T
 from ..bitstream import aac_syntax as syn
 from ..bitstream.adts import parse_adts_header
@@ -41,10 +44,9 @@ from ..bitstream.sbr_syntax import SBRContext
 from ..device import resolve
 from ..host import split_adts_stream
 from ..ops import ps_single, sbr_single
+from ..utils.metrics import log
 from .core import consts as core_consts
 from .core import core_frame
-
-log = logging.getLogger("heaac_tpu_torch")
 
 SF_SCALE = np.float32(1.0 / -1024.0)  # no-bias path (aacdec.c:579)
 
@@ -138,11 +140,18 @@ class Decoder:
     """Stateful AAC / HE-AAC decoder for one stream: its dense work runs on
     ``device`` (the card unless the caller passes ``device="cpu"``; a
     card raises RuntimeError without one).  ``device=None`` keeps the
-    parsing half only (the Python planners)."""
+    parsing half only (the Python planners).  ``use_native``: SCE / CPE
+    elements after frame 0 parse natively (the default); a
+    ``bitreader_cls`` (e.g. ``TracingBitReader``) parses in Python."""
 
     def __init__(self, asc: bytes | None = None,
-                 adts_probe: bytes | None = None, device="cuda"):
+                 adts_probe: bytes | None = None, use_native: bool = True,
+                 bitreader_cls=None, device="cuda"):
         self.device = None if device is None else resolve(device)
+        self.bitreader_cls = bitreader_cls or BitReader
+        # traced reads need the Python parser
+        self.use_native = use_native and bitreader_cls is None
+        self._parser = native.Parser() if self.use_native else None
         self.m4ac = M4AConfig()
         self.elements: dict[tuple[int, int], syn.ChannelElement] = {}
         self.lanes: list[LaneRef] = []          # output channel order
@@ -216,7 +225,7 @@ class Decoder:
     def decode_frame(self, packet: bytes):
         """Decode one ADTS frame / raw_data_block -> int16 [samples, ch], a
         CPU tensor."""
-        br = BitReader(packet)
+        br = self.bitreader_cls(packet)
         if br.show(12) == 0xFFF:
             hdr = parse_adts_header(br)
             if not self.locked and hdr.chan_config:
@@ -236,7 +245,25 @@ class Decoder:
             if not hdr.crc_absent:
                 br.skip(16)
 
-        frame_elements = self._parse_raw_data_block(br)
+        # the first frame parses with the Python element parser: a
+        # dependent (point 0/1) CCE needs un-TNS'd target spectra for the
+        # BEFORE_TNS add, and the native per-element engine applies TNS
+        # in-parse — discovery-after-the-fact would leave THIS frame
+        # decoded in the wrong order (aacdec.c spectral_to_sample).
+        # Native parsing resumes from frame 1 unless such a CCE exists.
+        first = not self.locked
+        native_saved = self.use_native
+        if first:
+            self.use_native = False
+        try:
+            frame_elements = self._parse_raw_data_block(br)
+        finally:
+            if first:
+                dep = any(
+                    et == T.TYPE_CCE and el.coup is not None
+                    and el.coup.coupling_point < 3
+                    for (et, _), el in self.elements.items())
+                self.use_native = native_saved and not dep
         out = self._spectral_to_sample(frame_elements)
         self.locked = True
         return out
@@ -290,14 +317,18 @@ class Decoder:
                 che.present_this_frame = True
 
             if etype in (T.TYPE_SCE, T.TYPE_LFE):
-                syn.decode_ics(br, che.cur[0], m.sampling_index,
-                               m.object_type, 0, self.rng)
-                if m.object_type == 1:
-                    syn.apply_prediction(che.ch[0], che.cur[0],
-                                         m.sampling_index, SF_SCALE)
+                if not (self.use_native and m.object_type == 2
+                        and self._native_sce(br, che)):
+                    syn.decode_ics(br, che.cur[0], m.sampling_index,
+                                   m.object_type, 0, self.rng)
+                    if m.object_type == 1:
+                        syn.apply_prediction(che.ch[0], che.cur[0],
+                                             m.sampling_index, SF_SCALE)
                 present.append((etype, eid))
             elif etype == T.TYPE_CPE:
-                self._decode_cpe(br, che)
+                if not (self.use_native and m.object_type == 2
+                        and self._native_cpe(br, che)):
+                    self._decode_cpe(br, che)
                 present.append((etype, eid))
             elif etype == T.TYPE_CCE:
                 syn.decode_cce(br, che, m.sampling_index, m.object_type,
@@ -309,6 +340,20 @@ class Decoder:
                     # applying here is value-identical
                     syn.apply_prediction(che.ch[0], che.cur[0],
                                          m.sampling_index, SF_SCALE)
+                if self.use_native and che.coup.coupling_point < 3:
+                    # pre-IMDCT coupling needs un-TNS'd target spectra; the
+                    # native engine applies TNS in-parse, so fall back to
+                    # the Python element parser from the next frame on.
+                    # (Streams whose dependent CCE is present from frame 0
+                    # are exact — decode_frame parses frame 0 in Python; a
+                    # mid-stream ONSET frame's targets were native-parsed
+                    # with TNS already applied, so warn: that one frame's
+                    # coupling order is inverted vs aacdec.c.)
+                    log.warning(
+                        "dependent CCE appeared mid-stream: this frame's "
+                        "coupling applies post-TNS (reference order "
+                        "resumes next frame)")
+                    self.use_native = False
                 present.append((etype, eid))
             elif etype == T.TYPE_DSE:
                 self._skip_dse(br)
@@ -377,6 +422,47 @@ class Decoder:
         syn.apply_intensity_stereo(cpe, ms_present)
 
     # ------------------------------------------------------------------
+    def _apply_native_meta(self, cd, meta) -> None:
+        ics = cd.ics
+        ics.window_sequence_prev = ics.window_sequence
+        ics.window_sequence = int(meta[0])
+        ics.use_kb_window_prev = ics.use_kb_window
+        ics.use_kb_window = int(meta[1])
+        ics.max_sfb = int(meta[2])
+        ics.num_windows = int(meta[3])
+        ics.num_window_groups = int(meta[4])
+        ics.group_len = [int(v) for v in meta[5:5 + ics.num_window_groups]]
+        cd.tns = syn.TnsData()  # TNS already applied natively
+
+    def _native_sce(self, br: BitReader, che) -> bool:
+        """Returns False when the element needs the Python parser (the
+        native engine signalled -2, e.g. a predictor-carrying ics_info);
+        the bit position is untouched in that case."""
+        res = self._parser.parse_sce(br._val.to_bytes(br.nbits // 8, "big"),
+                                     br.pos, self.m4ac.sampling_index,
+                                     self.rng[0])
+        if res is None:
+            return False
+        coeffs, meta, newpos, self.rng[0] = res
+        che.cur[0].coeffs = coeffs
+        self._apply_native_meta(che.cur[0], meta)
+        br.pos = newpos
+        return True
+
+    def _native_cpe(self, br: BitReader, che) -> bool:
+        res = self._parser.parse_cpe(br._val.to_bytes(br.nbits // 8, "big"),
+                                     br.pos, self.m4ac.sampling_index,
+                                     self.rng[0])
+        if res is None:
+            return False
+        (c0, c1), (m0, m1), newpos, self.rng[0] = res
+        che.cur[0].coeffs = c0
+        che.cur[1].coeffs = c1
+        self._apply_native_meta(che.cur[0], m0)
+        self._apply_native_meta(che.cur[1], m1)
+        br.pos = newpos
+        return True
+
     def _skip_dse(self, br: BitReader) -> None:
         byte_align = br.get1()
         count = br.get(8)

@@ -127,6 +127,11 @@ class QwirePlanningDecoder(Decoder):
     dequantization skipped — the device performs sbr_dequant/mapping/chirp."""
 
     def __init__(self, *a, **kw):
+        # parse with the pure-Python syntax layer, as the JAX planner
+        # does: the native per-element parser never captures spectral
+        # bit positions (Decoder._native_sce), and raw-bits lanes need
+        # decode_ics
+        kw.setdefault("use_native", False)
         super().__init__(*a, device=None, **kw)   # parses only
         self.frames_q = []   # per frame: list of per-lane (payload, rec)
         self.ps_is34 = None

@@ -4,8 +4,11 @@ The port does not import ``heaac_tpu.native`` (importing anything under
 ``heaac_tpu`` loads jax).  It compiles ``heaac_tpu/native/aac_host.cc``
 by path, with the same g++ flags, into its own build directory and binds
 the entry points the decoders call: the HE qwire parser (and the
-two-frame probe ``decode_batch`` buckets by) and the whole-stream LC
-parser (``heaac_tpu/native/__init__.py`` parse_stream, probe_he_stream).
+two-frame probe ``decode_batch`` buckets by), the whole-stream LC
+parser and the single-stream Decoder's per-element SCE / CPE parsers
+(``heaac_tpu/native/__init__.py`` parse_stream, probe_he_stream,
+parse_sce, parse_cpe).  The parser is always built: a build or load
+failure raises.
 The library is rebuilt when ``aac_host.cc`` or either file it includes
 is newer.  The parser keeps static state: one native call at a time.
 """
@@ -20,6 +23,7 @@ import time
 import numpy as np
 
 from . import tables as TB
+from .bitstream.reader import BitstreamError
 from .tables import REPO
 
 SRC_DIR = os.path.join(REPO, "heaac_tpu", "native")
@@ -59,8 +63,9 @@ def build() -> float:
 
 
 class Parser:
-    """ctypes binding of ``hh_parse_he_stream_qwire`` (he_host.inc) and
-    ``ht_parse_stream`` (aac_host.cc)."""
+    """ctypes binding of ``hh_parse_he_stream_qwire`` (he_host.inc),
+    ``ht_parse_stream``, ``ht_parse_sce`` and ``ht_parse_cpe``
+    (aac_host.cc)."""
 
     def __init__(self):
         build()
@@ -78,6 +83,17 @@ class Parser:
             ctypes.POINTER(ctypes.c_int64), i32p, ctypes.c_int,
             ctypes.c_int64, ctypes.c_int64, i32p, i32p,
             ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+        f32p = ctypes.POINTER(ctypes.c_float)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        L.ht_parse_sce.restype = ctypes.c_int
+        L.ht_parse_sce.argtypes = [ctypes.c_char_p, ctypes.c_int64, i64p,
+                                   ctypes.c_int, f32p, i32p, u32p,
+                                   ctypes.c_int]
+        L.ht_parse_cpe.restype = ctypes.c_int
+        L.ht_parse_cpe.argtypes = [ctypes.c_char_p, ctypes.c_int64, i64p,
+                                   ctypes.c_int, f32p, f32p, i32p, i32p,
+                                   u32p, ctypes.c_int]
         L.ht_init()
         self.lib = L
         self.parse_qwire = L.hh_parse_he_stream_qwire
@@ -124,3 +140,45 @@ class Parser:
         if r < 0:
             return None
         return coeffs[:r], meta[:r]
+
+    def parse_sce(self, data: bytes, pos_bits: int, sampling_index: int,
+                  rng_state: int, apply_tns: bool = True):
+        """Native SCE parse -> (coeffs[1024] f32, meta [16] i32, new_pos,
+        new_rng), or None if the element needs the Python parser (-2,
+        e.g. a predictor-carrying ics_info); BitstreamError on any other
+        failure."""
+        C = ctypes
+        coeffs = np.zeros(1024, np.float32)
+        meta = np.zeros(16, np.int32)
+        pos = C.c_int64(pos_bits)
+        rng = C.c_uint32(rng_state & 0xFFFFFFFF)
+        r = self.lib.ht_parse_sce(
+            data, len(data) * 8, C.byref(pos), sampling_index,
+            coeffs.ctypes.data_as(C.POINTER(C.c_float)),
+            meta.ctypes.data_as(C.POINTER(C.c_int32)), C.byref(rng),
+            int(apply_tns))
+        if r == -2:
+            return None
+        if r:
+            raise BitstreamError(f"native SCE parse failed ({r})")
+        return coeffs, meta, pos.value, rng.value
+
+    def parse_cpe(self, data: bytes, pos_bits: int, sampling_index: int,
+                  rng_state: int, apply_tns: bool = True):
+        """Native CPE parse -> ((coeffs0, coeffs1), (meta0, meta1),
+        new_pos, new_rng), or None / BitstreamError as ``parse_sce``."""
+        C = ctypes
+        c0, c1 = np.zeros(1024, np.float32), np.zeros(1024, np.float32)
+        m0, m1 = np.zeros(16, np.int32), np.zeros(16, np.int32)
+        pos = C.c_int64(pos_bits)
+        rng = C.c_uint32(rng_state & 0xFFFFFFFF)
+        fp = lambda a: a.ctypes.data_as(C.POINTER(C.c_float))  # noqa: E731
+        ip = lambda a: a.ctypes.data_as(C.POINTER(C.c_int32))  # noqa: E731
+        r = self.lib.ht_parse_cpe(
+            data, len(data) * 8, C.byref(pos), sampling_index, fp(c0),
+            fp(c1), ip(m0), ip(m1), C.byref(rng), int(apply_tns))
+        if r == -2:
+            return None
+        if r:
+            raise BitstreamError(f"native CPE parse failed ({r})")
+        return (c0, c1), (m0, m1), pos.value, rng.value

@@ -1,13 +1,16 @@
 """The port's entry point runs on the card unless the caller asks for the
 CPU; whether a card is present is decided inside the test."""
+import os
+
 import pytest
 import torch
 
-from heaac_tpu_torch import Decoder, decode_adts, decode_batch
+from heaac_tpu_torch import (Decoder, cli, decode, decode_adts, decode_batch,
+                             decode_m4a)
 from heaac_tpu_torch.codec.batch import (LcStreamBatchDecoder,
                                          QwirePipelinedDecoder)
 from heaac_tpu_torch.host import split_adts_stream
-from test_torch_common import bench_streams, streams_of
+from test_torch_common import REPO, bench_streams, golden_tool, streams_of
 
 
 def test_decoder_defaults_to_the_card():
@@ -42,3 +45,21 @@ def test_single_stream_decoder_defaults_to_the_card():
             Decoder(adts_probe=data[:7])
         with pytest.raises(RuntimeError, match="is_available"):
             decode_adts(data)
+
+
+def test_front_doors_default_to_the_card(tmp_path):
+    """decode, decode_m4a and the command line's decode default to the
+    card too (``--device cpu`` on the command line)."""
+    path = os.path.join(REPO, golden_tool().FRONT_FILE.format(
+        "he20_explicit_0"))
+    with open(path, "rb") as f:
+        m4a = f.read()
+    out = str(tmp_path / "o.wav")
+    runs = (lambda: decode(m4a)[1], lambda: decode_m4a(m4a)[1],
+            lambda: cli.main(["-i", path, out]))
+    if torch.cuda.is_available():
+        assert [run() for run in runs] == [48000, 48000, 0]
+        return
+    for run in runs:
+        with pytest.raises(RuntimeError, match="is_available"):
+            run()

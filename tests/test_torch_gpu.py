@@ -6,8 +6,9 @@ decode_batch on the card against its CPU run for a stream of each kind,
 a stream whose PS band mode flips through the flip scan, AAC-LC streams
 with a coupling channel (the LC planner and the coupled LC scan) beside
 an HE stream the native probe refuses (the Python prober and profile
-parse), the downsampled-SBR scan, and the single-stream Decoder
-(``decode_adts``; K1 at one lane).
+parse), the downsampled-SBR scan, the single-stream Decoder
+(``decode_adts``; K1 at one lane), and ``decode_m4a`` on the committed
+.m4a inputs.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from heaac_tpu_torch import Decoder, decode_adts, decode_batch
+from heaac_tpu_torch import Decoder, decode_adts, decode_batch, decode_m4a
 from heaac_tpu_torch.codec import heaac_graph
 from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
                                          decode_qwire_flip_stream,
@@ -193,6 +194,43 @@ def test_single_decoder_on_card_matches_cpu(cuda):
     for name, g in gpu.items():
         c = run(name, "cpu")
         assert g.device.type == "cpu" and g.dtype == torch.int16
+        assert tuple(g.shape) == tuple(c.shape)
+        assert int(c.abs().max()) > 1000
+        assert int((g.int() - c.int()).abs().max()) <= 2, name
+
+
+def test_decode_m4a_on_card_matches_cpu(cuda, monkeypatch):
+    """``decode_m4a`` on the card over the committed .m4a inputs (16
+    frames: the ADTS re-wrap, explicit SBR through the ASC-configured
+    Decoder with one corrupted frame dropped, downsampled SBR): within 2
+    LSB of the CPU, the same rate, and K1 at one lane exactly once per
+    frame in which PS ran on the CPU run (where the corrupted frame is
+    dropped, PS stops: 3 frames)."""
+    from heaac_tpu_torch.ops import ps as ps_ops
+    tool = golden_tool()
+    names = ("he20_0", "he20_explicit_bad_0", "ds_0")
+    m4a = {}
+    for name in names:
+        with open(f"{tool.REPO}/{tool.FRONT_FILE.format(name)}", "rb") as f:
+            m4a[name] = f.read()
+    calls = []
+    real = ps_ops.decorrelate_seq
+
+    def spy(*a):
+        if a[0].device.type == "cpu":
+            calls.append((a[0].shape[0], a[1].shape[1]))
+        return real(*a)
+
+    monkeypatch.setattr(ps_ops, "decorrelate_seq", spy)
+    cpu = {name: decode_m4a(m4a[name], device="cpu") for name in names}
+    assert calls == [(1, 30)] * (2 * tool.FRAMES + 3)
+    before = dict(K.launches)
+    gpu = {name: decode_m4a(m4a[name], device=cuda) for name in names}
+    assert {napb: K.launches[napb] - before[napb] for napb in before} == {
+        30: len(calls), 50: 0}
+    for name, (g, rate) in gpu.items():
+        c, crate = cpu[name]
+        assert rate == crate and g.device.type == "cpu"
         assert tuple(g.shape) == tuple(c.shape)
         assert int(c.abs().max()) > 1000
         assert int((g.int() - c.int()).abs().max()) <= 2, name

@@ -11,7 +11,10 @@ stream with a coupling channel (the LC planner, 4 frames) and the
 downsampled scan on a downsampled-SBR stream parsed with its
 AudioSpecificConfig (4 frames), against their JAX goldens; then
 ``decode_adts`` (the single-stream Decoder) on two frames of a benchdata
-stream against the JAX Decoder's golden (tests/data/single_golden_jax.npz)."""
+stream against the JAX Decoder's golden (tests/data/single_golden_jax.npz);
+then ``decode`` on a committed .m4a (explicit SBR signalling: the
+ASC-configured Decoder) and the command line's ``--probe`` on it,
+against tests/data/front_golden_jax.npz."""
 import os
 import subprocess
 import sys
@@ -84,6 +87,19 @@ sgold = np.load(REPO + "/tests/data/single_golden_jax.npz")["pcm_he20_0"]
 sdiff = int(np.abs(spcm.numpy().astype(np.int32) - sgold[:len(spcm)]).max())
 print("SINGLE", tuple(spcm.shape), srate,
       sdiff <= 2 and int(spcm.abs().max()) > 1000)
+import contextlib, io, json
+from heaac_tpu_torch import cli, decode
+m4a = REPO + "/tests/data/front_he20_explicit_0.m4a"
+mpcm, mrate = decode(open(m4a, "rb").read(), device="cpu")
+fgold = np.load(REPO + "/tests/data/front_golden_jax.npz")
+mdiff = int(np.abs(mpcm.numpy().astype(np.int32)
+                   - fgold["pcm_he20_explicit_0"]).max())
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = cli.main(["-i", m4a, "--probe"])
+same = json.loads(out.getvalue()) == json.loads(
+    str(fgold["probe_main_he20_explicit_0"]))
+print("FRONT", tuple(mpcm.shape), mrate, mdiff <= 2, rc, same)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -110,3 +126,5 @@ def test_port_decodes_without_jax():
     assert lcds == "LCDS (4096, 1) (4, 1, 2, 1024) True", lcds
     single = [x for x in r.stdout.splitlines() if x.startswith("SINGLE")][0]
     assert single == "SINGLE (4096, 2) 48000 True", single
+    front = [x for x in r.stdout.splitlines() if x.startswith("FRONT")][0]
+    assert front == "FRONT (32768, 2) 48000 True 0 True", front

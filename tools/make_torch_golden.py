@@ -3,9 +3,9 @@
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir [name ...]]
 
-Writes nine files into tests/data (or out_dir), all from the JAX
+Writes ten goldens into tests/data (or out_dir), all from the JAX
 package on the CPU; with names (scan, batch, stereo, qwire, flip, lc,
-probe, ds, single) only those:
+probe, ds, single, front) only those:
 
   heaac_v2_golden_jax.npz      benchdata/heaac_bench_stream_{0,1}.aac
       parsed by its QwirePipelinedDecoder and decoded by its qwire scan,
@@ -83,6 +83,25 @@ probe, ds, single) only those:
       name ``pcm_{name}`` (int16 [n, ch]), ``errors_{name}`` (its
       ``error_count``), ``rate_{name}`` (its output rate) and
       ``ps_{name}`` ([frames whose PS ran in 20 bands, in 34 bands]).
+  front_golden_jax.npz  the front doors.  First the ``.m4a`` inputs,
+      written by its muxer (``heaac_tpu.io.mp4.mux_m4a``) as
+      tests/data/front_{name}.m4a, FRAMES frames each (``FRONT_LIST``):
+      bench stream 0 through its ADTS->ASC filter (``he20_0``; it
+      re-wraps as ADTS), the same raw frames behind an explicit-SBR
+      AudioSpecificConfig (``he20_explicit_0``; ``EXPLICIT_SBR_ASC``:
+      the ASC-configured Decoder), ``heaac_ds_0`` behind heaac_ds.asc
+      (``ds_0``), ``lc_core_24k_0`` (``lc_0``) and the explicit twin with
+      frame ``FRONT_CORRUPT`` corrupted (``he20_explicit_bad_0``: both
+      packages raise BitstreamError on it).  Then its ``decode`` of each
+      (``pcm_{name}``, ``rate_{name}``, ``errors_{name}``: the
+      Decoder's error_count); its CLI's ``--probe`` JSON, captured
+      in-process, of each input and of each ``FRONT_ADTS`` stream
+      (``probe_main_{name}``), and ``probe()``'s dict of each ADTS
+      stream (``probe_{name}``, JSON); and the ``(pos, n, value)`` reads
+      of its ``TracingBitReader`` over the first TRACE_FRAMES frames of
+      lc_core_24k_0 (``trace``, int64 [reads, 2]: pos, n;
+      ``trace_values``, each value in hex: a skip's is as wide as the
+      skip).
 
 The 34-band, stereo, CCE, flip, LC + CCE and downsampled streams come
 from tools/make_torch_streams.py.
@@ -96,7 +115,8 @@ to the fifth; tests/test_torch_lc_planner.py and chip_smoke.py phase 8
 hold the LC planner, the prober and the profile parse to the sixth and
 seventh, tests/test_torch_downsampled.py and phase 8 the downsampled
 scan to the eighth, tests/test_torch_single.py and phase 9 the port's
-single-stream Decoder to the ninth.
+single-stream Decoder to the ninth, tests/test_torch_front.py and phase
+10 the port's front doors and CLI to the tenth.
 """
 import os
 import sys
@@ -180,6 +200,35 @@ SINGLE_LIST = (
     ("lc_0", "benchdata/lc_core_24k_0.aac"),
     ("ds_0", DS_FILE.format(0)),
 )
+
+
+FRONT_GOLDEN = os.path.join(DATA, "front_golden_jax.npz")
+FRONT_FILE = "tests/data/front_{}.m4a"
+# AOT 5 (SBR), core rate index 6 (24 kHz), mono, extension rate index 3
+# (48 kHz), AOT 2, GASpecificConfig flags 0 (tests/test_mp4.py:122-130)
+EXPLICIT_SBR_ASC = bytes.fromhex("2b098800")
+FRONT_CORRUPT = (3, 4)    # (frame, byte of its raw data block) XOR 0xFF
+# name -> (ADTS file, AudioSpecificConfig: None for the ADTS->ASC
+# filter's, "explicit" for EXPLICIT_SBR_ASC, else a file)
+FRONT_LIST = (
+    ("he20_0", "benchdata/heaac_bench_stream_0.aac", None),
+    ("he20_explicit_0", "benchdata/heaac_bench_stream_0.aac", "explicit"),
+    ("ds_0", DS_FILE.format(0), DS_ASC),
+    ("lc_0", "benchdata/lc_core_24k_0.aac", None),
+    ("he20_explicit_bad_0", "benchdata/heaac_bench_stream_0.aac",
+     "explicit"),
+)
+# the ADTS streams the CLI probes: name -> file
+FRONT_ADTS = (
+    ("he20_0.aac", "benchdata/heaac_bench_stream_0.aac"),
+    ("he34_0.aac", "tests/data/heaac_v2_34band_0.aac"),
+    ("he_v1s_1.aac", STEREO_FILE.format(1)),
+    ("cce_after_0.aac", "tests/data/heaac_cce_after_0.aac"),
+    ("ds_0.aac", DS_FILE.format(0)),
+    ("lc_0.aac", "benchdata/lc_core_24k_0.aac"),
+)
+TRACE_FILE = "benchdata/lc_core_24k_0.aac"
+TRACE_FRAMES = 2
 
 
 def batch_streams(repo: str = REPO) -> list:
@@ -742,11 +791,119 @@ def write_single_golden(out: str) -> None:
         for n in z["names"]))
 
 
+def front_m4a(name: str, adts_to_asc, mux_m4a, frames: int = FRAMES,
+              repo: str = REPO) -> bytes:
+    """A FRONT_LIST input as .m4a bytes, its first ``frames`` frames,
+    made with the given ADTS->ASC filter and muxer (the JAX package's,
+    or the port's: they write the same bytes)."""
+    rel, asc_kind = {n: (r, a) for n, r, a in FRONT_LIST}[name]
+    with open(os.path.join(repo, rel), "rb") as f:
+        data = f.read()
+    asc, raw = adts_to_asc(data)
+    raw = raw[:frames]
+    if name.endswith("_bad_0"):
+        k, pos = FRONT_CORRUPT
+        bad = bytearray(raw[k])
+        bad[pos] ^= 0xFF
+        raw[k] = bytes(bad)
+    if asc_kind is None:
+        return mux_m4a(raw, asc, 24000, 1)
+    if asc_kind == "explicit":
+        return mux_m4a(raw, EXPLICIT_SBR_ASC, 48000, 1, frame_samples=2048)
+    with open(os.path.join(repo, asc_kind), "rb") as f:
+        return mux_m4a(raw, f.read(), 24000, 1)
+
+
+def front_golden(out: str) -> dict:
+    """Writes the FRONT_LIST inputs into ``out`` and returns the golden."""
+    import contextlib
+    import functools
+    import io
+    import json
+    sys.path.insert(0, REPO)
+    import heaac_tpu
+    from heaac_tpu import cli
+    from heaac_tpu.bitstream.reader import BitstreamError, TracingBitReader
+    from heaac_tpu.io.adts import adts_to_asc
+    from heaac_tpu.io.mp4 import demux_m4a, mux_m4a
+
+    made = []
+
+    class Recorded(heaac_tpu.Decoder):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def cli_probe(path: str) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["-i", path, "--probe"]) == 0
+        return buf.getvalue()
+
+    z = {"names": np.array([name for name, _, _ in FRONT_LIST])}
+    real = heaac_tpu.Decoder
+    heaac_tpu.Decoder = Recorded
+    try:
+        for name, _, _ in FRONT_LIST:
+            m4a = front_m4a(name, adts_to_asc, mux_m4a)
+            path = os.path.join(out, os.path.basename(FRONT_FILE.format(name)))
+            with open(path, "wb") as f:
+                f.write(m4a)
+            made.clear()
+            pcm, rate = heaac_tpu.decode(m4a)
+            z[f"pcm_{name}"] = np.asarray(pcm, np.int16)
+            z[f"rate_{name}"] = np.int64(rate)
+            z[f"errors_{name}"] = np.int64(made[-1].error_count)
+            z[f"probe_main_{name}"] = np.array(cli_probe(path))
+    finally:
+        heaac_tpu.Decoder = real
+    # the corrupted frame raises BitstreamError in the ASC-configured
+    # Decoder (the port's test checks its own)
+    t = demux_m4a(front_m4a("he20_explicit_bad_0", adts_to_asc, mux_m4a))
+    dec = real(asc=t.asc)
+    k = FRONT_CORRUPT[0]
+    for f in t.frames[:k]:
+        dec.decode_frame(f)
+    try:
+        dec.decode_frame(t.frames[k])
+        raise AssertionError("the corrupted frame decoded")
+    except BitstreamError:
+        pass
+    for name, rel in FRONT_ADTS:
+        with open(os.path.join(REPO, rel), "rb") as f:
+            data = f.read()
+        z[f"probe_{name}"] = np.array(json.dumps(cli.probe(data)))
+        z[f"probe_main_{name}"] = np.array(cli_probe(os.path.join(REPO,
+                                                                  rel)))
+    reads = []
+    with open(os.path.join(REPO, TRACE_FILE), "rb") as f:
+        head = f.read()
+    from heaac_tpu.bitstream.adts import split_adts_stream
+    head = b"".join(split_adts_stream(head)[:TRACE_FRAMES])
+    dec = real(adts_probe=head[:7], bitreader_cls=functools.partial(
+        TracingBitReader, sink=lambda pos, n, v: reads.append((pos, n, v))))
+    dec.decode(head)
+    # a skip's value is as wide as the skip: the values as hex strings
+    z["trace"] = np.array([(pos, n) for pos, n, _ in reads], np.int64)
+    z["trace_values"] = np.array([f"{v:x}" for _, _, v in reads])
+    return z
+
+
+def write_front_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(FRONT_GOLDEN))
+    z = front_golden(out)
+    np.savez_compressed(path, **z)
+    print(f"wrote {path}: " + ", ".join(
+        f"{n} {z[f'pcm_{n}'].shape} rate {int(z[f'rate_{n}'])} errors "
+        f"{int(z[f'errors_{n}'])}" for n in z["names"])
+        + f"; trace {z['trace'].shape}")
+
+
 WRITERS = {"scan": write_scan_golden, "batch": write_batch_golden,
            "stereo": write_stereo_golden, "qwire": write_qwire_golden,
            "flip": write_flip_golden, "lc": write_lc_golden,
            "probe": write_probe_golden, "ds": write_ds_golden,
-           "single": write_single_golden}
+           "single": write_single_golden, "front": write_front_golden}
 
 
 def main() -> None:
