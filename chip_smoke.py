@@ -137,7 +137,25 @@ Phases (any failure exits non-zero):
      trace names K1's kernel), ``--probe`` on the committed re-wrap and
      explicit-SBR .m4a inputs (equal to the JAX CLI's JSON in the golden)
      and ``--bit-trace`` on two frames of benchdata/lc_core_24k_0.aac
-     (as many trace lines as the golden's reads).
+     (as many trace lines as the golden's reads);
+ 11. the parallel layer: (a) heaac_tpu_torch.parallel.sharding
+     .ShardedQwireDecoder over phase 4's 512 streams as one group on
+     ["cuda:0", "cuda:0"] (two shards of 256 lanes), a warm-up, then a
+     timed run: K1 exactly twice per frame at napb 30, PCM within 1 LSB
+     of phase 4's, realtime and ms a frame beside phase 4's; (b) the
+     stream-aligned cut on cuda:0: 6 stereo HE-AAC v1 streams over 4
+     shards (1, 2, 1, 2 streams) and the 4 coupling-channel streams of
+     the sharded golden over 8 shards (four without lanes), 16 frames,
+     K1 once per frame per shard with lanes, within 1 LSB of the port's
+     unsharded CPU decode and of the JAX golden
+     (tests/data/sharded_golden_jax.npz); (c) two processes of ``python
+     -m heaac_tpu_torch.parallel.multihost`` on cuda:0 with gloo over
+     the 8 bench streams: both report the same global metrics (400
+     frames, 17.0667 s of audio, 200 frames each), each its device and
+     50 K1 launches at napb 30; (d) with two cards or more, (a) on
+     ["cuda:0", "cuda:1"] (K1 counted on each card) and (c) with NCCL
+     on one card per rank, else it prints that cross-card runs were not
+     measured.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -193,6 +211,8 @@ SINGLE = ("he20_0", "he34_0", "flip_0", "he_v1s_1", "cce_after_0", "ds_0")
 # whole committed streams (tools/make_torch_golden.py FRONT_LIST)
 FRONT_M4A = ("he20_0", "he20_explicit_0", "ds_0")
 PROFILE_FRAMES = 2             # phase 10 (b): frames under --profile
+SHARD_TOL_LSB = 1              # phase 11: sharded vs unsharded, golden
+MULTIHOST_TIMEOUT_S = 300      # phase 11 (c): each rank's own limit
 FLUSH_BYTES = 128 << 20        # > 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -1083,15 +1103,16 @@ def single_streams(K, card: str) -> dict:
     return dict(launches=total, busy=busy)
 
 
-def k1_calls(fn) -> tuple:
-    """(fn()'s result, [(lanes, napb)] of every call of K1's wrapper
-    made through ``ops/ps.py`` while fn ran)."""
+def k1_calls(fn, key=lambda a: (a[0].shape[0], a[1].shape[1])) -> tuple:
+    """(fn()'s result, [key(arguments)] of every call of K1's wrapper
+    made through ``ops/ps.py`` while fn ran; by default (lanes,
+    napb))."""
     from heaac_tpu_torch.ops import ps as ps_ops
     calls = []
     real = ps_ops.decorrelate_seq
 
     def spy(*a):
-        calls.append((a[0].shape[0], a[1].shape[1]))
+        calls.append(key(a))
         return real(*a)
 
     ps_ops.decorrelate_seq = spy
@@ -1283,6 +1304,166 @@ def k1_one_lane(K) -> dict:
     return out
 
 
+def sharded_full_width(K, card: str, streams: list, main: dict,
+                       devices: list) -> dict:
+    """Phase 11 (a), and (d) on two cards: ShardedQwireDecoder over
+    phase 4's streams as one group on ``devices``; K1 exactly once per
+    frame per shard at napb 30 (counted per card through ``ops/ps.py``),
+    PCM within SHARD_TOL_LSB of phase 4's.  Returns K1's launches, per
+    card and the realtime factor."""
+    from heaac_tpu_torch.parallel.sharding import ShardedQwireDecoder
+    dec = ShardedQwireDecoder(streams, devices=devices, group_streams=LANES)
+    t0 = time.perf_counter()
+    dec.decode()                                   # warm-up
+    warm_s = time.perf_counter() - t0
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs, calls = k1_calls(dec.decode, key=lambda a: str(a[0].device))
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    per_card = {c: calls.count(c) for c in sorted(set(calls))}
+    pcm = outs[0].numpy()
+    T = pcm.shape[0]
+    audio_s = dec.audio_seconds()
+    rt = audio_s / wall
+    names = [str(d) for d in dec.devices]
+    print(f"sharded main path on {names}: lanes per shard "
+          f"{[hi - lo for lo, hi in dec.bounds]}, {T} frames, audio "
+          f"{audio_s:.3f} s, wall {wall:.3f} s (warm-up {warm_s:.3f} s), "
+          f"realtime {rt:.1f}x, {1e3 * wall / T:.1f} ms a frame; phase 4 in "
+          f"this call: realtime {main['rt']:.1f}x, "
+          f"{1e3 * main['wall'] / T:.1f} ms a frame, on {card}; K1 launches "
+          f"{launches}, per card {per_card}", flush=True)
+    want_cards = {c: T * names.count(c) for c in names}
+    if launches != {30: len(devices) * T, 50: 0} or per_card != want_cards:
+        raise SystemExit(f"phase 11: K1 launched {launches} (per card "
+                         f"{per_card}), expected {len(devices)} x {T} at "
+                         f"napb 30 ({want_cards})")
+    if pcm.shape != main["pcm"].shape:
+        raise SystemExit(f"phase 11: pcm {pcm.shape}, phase 4's "
+                         f"{main['pcm'].shape}")
+    d = int(np.abs(pcm.astype(np.int32) - main["pcm"]).max())
+    print(f"sharded vs phase 4's unsharded PCM: max {d} LSB", flush=True)
+    if d > SHARD_TOL_LSB:
+        raise SystemExit("phase 11: sharded PCM differs from phase 4's")
+    return dict(launches=launches, per_card=per_card, realtime=rt)
+
+
+def sharded_cut(K, card: str, files: dict) -> dict:
+    """Phase 11 (b): the stream-aligned cut on cuda:0, 6 stereo streams
+    over 4 shards and the sharded golden's coupling streams over 8 (four
+    shards without lanes); K1 once per frame per shard with lanes,
+    within SHARD_TOL_LSB of the port's unsharded CPU decode and of the
+    JAX golden.  Returns K1's launches summed over both cases."""
+    from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+    from heaac_tpu_torch.parallel.sharding import ShardedQwireDecoder
+    tool = golden_tool()
+    gold = dict(np.load(tool.SHARDED_GOLDEN))
+    cases = (("stereo", files["he_v1s"][:6], 4),
+             ("cce", tool.sharded_streams("cce", REPO), 8))
+    total = {30: 0, 50: 0}
+    for name, streams, n in cases:
+        dec = ShardedQwireDecoder(streams, devices=["cuda:0"] * n,
+                                  max_frames=GOLDEN_FRAMES)
+        reset_launches(K)
+        t0 = time.perf_counter()
+        pcm = dec.decode()[0].numpy().astype(np.int32)
+        wall = time.perf_counter() - t0
+        launches = dict(K.launches)
+        lanes = [hi - lo for lo, hi in dec.bounds]
+        busy = sum(1 for x in lanes if x)
+        cpu = QwirePipelinedDecoder(streams, max_frames=GOLDEN_FRAMES,
+                                    device="cpu").decode()[0].numpy()
+        want = gold[f"pcm_{name}"]
+        d_cpu = int(np.abs(pcm - cpu).max())
+        d_gold = int(np.abs(pcm[:, :want.shape[1]] - want).max())
+        print(f"sharded {name}: {len(streams)} streams over {n} shards on "
+              f"cuda:0, lanes per shard {lanes}, {GOLDEN_FRAMES} frames in "
+              f"{wall:.3f} s; K1 launches {launches}; max LSB vs the port's "
+              f"CPU run {d_cpu}, vs the JAX golden {d_gold}", flush=True)
+        if launches != {30: busy * GOLDEN_FRAMES, 50: 0}:
+            raise SystemExit(f"phase 11 (b) {name}: K1 launched {launches}, "
+                             f"expected {busy} shards x {GOLDEN_FRAMES}")
+        if max(d_cpu, d_gold) > SHARD_TOL_LSB or \
+                np.abs(cpu).max(axis=(0, 2, 3)).min() == 0:
+            raise SystemExit(f"phase 11 (b) {name}: card output differs "
+                             "from the references, or a silent lane")
+        for napb in total:
+            total[napb] += launches[napb]
+    return total
+
+
+def multihost_run(card: str, bench: list, backend: str, devices) -> dict:
+    """Phase 11 (c), and (d) with NCCL: two processes of ``python -m
+    heaac_tpu_torch.parallel.multihost`` over the bench streams in a
+    temporary directory, rank k on ``devices[k]`` (None: the module's
+    default, card k).  Both must report the same global metrics, and
+    each rank its device and one K1 launch per frame at napb 30.
+    Returns K1's launches summed over the ranks."""
+    import socket
+    import tempfile
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, data in enumerate(bench):
+            with open(os.path.join(tmp, f"s{i}.aac"), "wb") as f:
+                f.write(data)
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for rank, dev in enumerate(devices):
+                cmd = [sys.executable, "-m",
+                       "heaac_tpu_torch.parallel.multihost",
+                       "--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", str(len(devices)),
+                       "--process-id", str(rank), "--streams-dir", tmp,
+                       "--backend", backend]
+                procs.append(subprocess.Popen(
+                    cmd + (["--device", dev] if dev else []), cwd=REPO,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            lines = []
+            for rank, p in enumerate(procs):
+                out, err = p.communicate(timeout=MULTIHOST_TIMEOUT_S)
+                if p.returncode != 0:
+                    raise SystemExit(f"phase 11 multihost rank {rank} exited "
+                                     f"{p.returncode}: {err[-2000:]}")
+                lines.append([json.loads(x)
+                              for x in out.strip().splitlines()[-2:]])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+    n = len(bench)
+    frames = n * 50
+    glob = [{k: v for k, v in g.items()
+             if k not in ("process_id", "process_frames")} for _, g in lines]
+    for rank, (info, g) in enumerate(lines):
+        step_ms = 1e3 * info["decode_s"] / 50
+        print(f"multihost rank {rank} ({backend}): {info}; {g}; decode "
+              f"{step_ms:.1f} ms a frame at {n // len(devices)} lanes "
+              f"(its process's first decode), realtime "
+              f"{g['process_frames'] * 2048 / 48000 / info['decode_s']:.1f}x"
+              f" on {card}", flush=True)
+        want_dev = devices[rank] or f"cuda:{rank}"
+        if (info["device"], info["backend"], info["k1_launches"]) != (
+                want_dev, backend, {"30": 50, "50": 0}) \
+                or g["process_frames"] != frames // len(devices):
+            raise SystemExit(f"phase 11 multihost rank {rank}: {info}, {g}")
+    print(f"multihost ({backend}, {len(devices)} ranks): wall {wall:.3f} s "
+          "from the first process's start to the last one's exit",
+          flush=True)
+    if glob[0] != glob[1] or glob[0] != {
+            "frames": frames, "errors": 0, "audio_seconds":
+            glob[0]["audio_seconds"], "num_devices": len(devices)} or \
+            abs(glob[0]["audio_seconds"] - frames * 2048 / 48000) > 1e-9:
+        raise SystemExit(f"phase 11 multihost: global metrics {glob}")
+    return {30: sum(int(info["k1_launches"]["30"]) for info, _ in lines)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1356,6 +1537,7 @@ def main() -> None:
           flush=True)
     if d_cpu > TOL_LSB or d_gold > TOL_LSB:
         raise SystemExit("card output differs from the references")
+    main4 = dict(pcm=pcm, wall=wall, rt=main_rt)    # phase 11 compares
     phase_done("4 main path")
 
     # ---- 5. mixed batch through decode_batch -------------------------------
@@ -1393,6 +1575,19 @@ def main() -> None:
     front_a = front_m4a_decodes(K, card)
     front_b = front_cli(K, card)
     phase_done("10 front doors")
+
+    # ---- 11. the parallel layer ---------------------------------------------
+    shard_a = sharded_full_width(K, card, streams, main4, ["cuda:0"] * 2)
+    shard_b = sharded_cut(K, card, files)
+    multi_c = multihost_run(card, bench, "gloo", ["cuda:0"] * 2)
+    shard_d = multi_d = None
+    if torch.cuda.device_count() >= 2:
+        shard_d = sharded_full_width(K, card, streams, main4,
+                                     ["cuda:0", "cuda:1"])
+        multi_d = multihost_run(card, bench, "nccl", [None, None])
+    else:
+        print("cross-card: not measured (1 card)", flush=True)
+    phase_done("11 parallel layer")
 
     row = dict(krows[30])
     row.pop("max_abs_err")
@@ -1450,6 +1645,25 @@ def main() -> None:
         "launches_phase10b_path": "phase 10 (b): python -m "
                                   "heaac_tpu_torch.cli --benchmark on bench "
                                   "stream 0 (decode_batch, one lane)",
+        "launches_phase11a_napb30": shard_a["launches"][30],
+        "launches_phase11a_path": "phase 11 (a): ShardedQwireDecoder, "
+                                  f"{LANES} streams on [cuda:0, cuda:0] "
+                                  "(2 shards of 256 lanes x 50 frames)",
+        "launches_phase11b_napb30": shard_b[30],
+        "launches_phase11b_path": "phase 11 (b): ShardedQwireDecoder on "
+                                  "cuda:0, 6 stereo streams over 4 shards "
+                                  "and 4 coupling streams over 8 (4 with "
+                                  f"lanes), {GOLDEN_FRAMES} frames",
+        "launches_phase11c_napb30": multi_c[30],
+        "launches_phase11c_path": "phase 11 (c): 2 processes of "
+                                  "heaac_tpu_torch.parallel.multihost on "
+                                  "cuda:0 (gloo), 4 streams x 50 frames "
+                                  "each",
+        "launches_phase11d_napb30": shard_d and shard_d["per_card"],
+        "launches_phase11d_nccl_napb30": multi_d and multi_d[30],
+        "launches_phase11d_path": "phase 11 (d): (a) on [cuda:0, cuda:1], "
+                                  "per card, and (c) with NCCL, one card a "
+                                  "rank; null: not measured (1 card)",
         "b1": k1_b1}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

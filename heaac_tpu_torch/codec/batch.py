@@ -206,7 +206,8 @@ class QwirePipelinedDecoder:
         cap += (-cap) % 4
         self._cap = cap
         self._bufsets = [None, None]
-        self._uploaded = [None, None]   # CUDA event per staging set
+        # CUDA events per staging set: one per card its upload went to
+        self._uploaded = [[], []]
 
     def _native_profile(self):
         """(lanes, output lanes, rate, is34) of stream 0 from the native
@@ -246,10 +247,9 @@ class QwirePipelinedDecoder:
 
     def _wait_uploads(self, bufsets=(0, 1)) -> None:
         for b in bufsets:
-            ev = self._uploaded[b]
-            if ev is not None:
+            for ev in self._uploaded[b]:
                 ev.synchronize()
-                self._uploaded[b] = None
+            self._uploaded[b] = []
 
     def _grow(self) -> None:
         """Double the heap staging; all uploads must have finished."""
@@ -406,7 +406,7 @@ class QwirePipelinedDecoder:
         if cuda:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
-            self._uploaded[bufset] = ev
+            self._uploaded[bufset] = [ev]
         if couple is not None:
             couple = tuple(torch.from_numpy(a).to(self.device)
                            for a in couple)

@@ -215,12 +215,14 @@ def _lib():
     return L
 
 
-def ctas_per_sm(napb: int) -> int:
-    """CTAs of the kernel one SM of the current card holds at napb's
-    geometry (the CUDA occupancy calculator; -1 on an error)."""
+def ctas_per_sm(napb: int, device=None) -> int:
+    """CTAs of the kernel one SM of ``device`` (the current card when
+    None) holds at napb's geometry (the CUDA occupancy calculator; -1 on
+    an error)."""
     geo = geometry(napb)
-    return _lib().ps_decorrelate_ctas_per_sm(
-        geo.det_threads + geo.chain_threads, geo.smem)
+    with torch.cuda.device(device):
+        return _lib().ps_decorrelate_ctas_per_sm(
+            geo.det_threads + geo.chain_threads, geo.smem)
 
 
 _STAGED = ("power", "in_re", "in_im", "ap")
@@ -262,12 +264,15 @@ def decorrelate_seq(power, in_re, in_im, trans, ap, ag, qf):
     new_trans = torch.empty((B, 34, 3), dtype=torch.float32, device=dev)
     new_ap = torch.empty((B, napb, 3, 5, 2), dtype=torch.float32, device=dev)
     geo = geometry(napb)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().ps_decorrelate_launch(
-        power.data_ptr(), in_re.data_ptr(), in_im.data_ptr(),
-        trans.data_ptr(), ap.data_ptr(), ag.data_ptr(), qf.data_ptr(),
-        tgain.data_ptr(), ap_out.data_ptr(), new_trans.data_ptr(),
-        new_ap.data_ptr(), B, napb, grid(B, geo), geo, stream)
+    # the launcher raises the shared-memory limit on, and launches from,
+    # the CUDA runtime's current device: make it the tensors' card
+    with torch.cuda.device(dev):
+        rc = _lib().ps_decorrelate_launch(
+            power.data_ptr(), in_re.data_ptr(), in_im.data_ptr(),
+            trans.data_ptr(), ap.data_ptr(), ag.data_ptr(), qf.data_ptr(),
+            tgain.data_ptr(), ap_out.data_ptr(), new_trans.data_ptr(),
+            new_ap.data_ptr(), B, napb, grid(B, geo), geo,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ps_decorrelate kernel launch failed: CUDA "
                            f"error {rc}")

@@ -1,0 +1,207 @@
+"""The decode spread over several cards of one process.
+
+Counterpart of ``heaac_tpu/parallel/sharding.py`` (make_mesh,
+sharded_core_step, ShardedQwireDecoder).  Streams are independent, so
+the parallel axis is the lane axis of a stream group: each card decodes
+a contiguous slice of the group's lanes with the unchanged qwire scan,
+and no card ever needs another card's data.
+
+Differences from the JAX package:
+  - the cut follows stream boundaries (``shard_bounds``): card k takes
+    whole streams, never the even ``L / n`` lanes of the JAX mesh, so a
+    CPE's two lanes (the device M/S butterfly) and a stream's coupling
+    channel lanes (the AFTER_IMDCT mix) stay on one card.  The JAX
+    decoder lets XLA insert the collectives that join a stream cut in
+    two; PyTorch inserts none, and this cut needs none.  The lane count
+    must still divide by the number of devices, as in JAX;
+  - ``ShardedQwireDecoder.decode`` parses with each group's real stream
+    count and resets ``error_count``, as the port's
+    ``QwirePipelinedDecoder`` does: the JAX class counts the corrupt
+    frames of a short last group's padding copies again and adds every
+    ``decode()`` call to the last;
+  - a device is a ``torch.device`` in a list, not a mesh.  One card may
+    stand in the list more than once: it then runs that many shards;
+  - ``ShardedStreamBatchDecoder`` is not ported: its base class, the
+    dense ``StreamBatchDecoder``, is not ported either (no entry point
+    of either package reaches it).
+
+One host thread issues the cards one after the other, and the frame
+loop is bound by that issue, so several cards fed by one process decode
+no faster than one; one process per card (``multihost``) is the way to
+use them.
+"""
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from ..codec.batch import QwirePipelinedDecoder
+from ..codec.core import consts, core_frame
+from ..codec.heaac_graph import init_qwire_carry, qwire_scan_decode
+from ..device import resolve
+
+
+def make_devices(n: int | None = None) -> list:
+    """The first ``n`` visible cards (all of them when None) as
+    ``torch.device``s; raises RuntimeError without a card or with fewer
+    than ``n``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_devices: torch.cuda.is_available() is "
+                           "False")
+    count = torch.cuda.device_count()
+    n = count if n is None else n
+    if not 1 <= n <= count:
+        raise RuntimeError(f"make_devices: {n} cards requested, {count} "
+                           "visible")
+    return [torch.device("cuda", k) for k in range(n)]
+
+
+def shard_bounds(G: int, nl: int, n: int) -> list:
+    """[(lo, hi)] lane range of each of ``n`` cards for a group of ``G``
+    streams of ``nl`` lanes each (stream b at lanes b * nl onwards): card
+    k takes streams k * G // n up to (k + 1) * G // n, so no stream is
+    cut; a card gets no lanes when G < n."""
+    return [(k * G // n * nl, (k + 1) * G // n * nl) for k in range(n)]
+
+
+def sharded_core_step(devices):
+    """``codec.core.core_frame`` with the batch axis cut into contiguous
+    per-device slices: the returned function takes core_frame's inputs
+    (coeffs [B, 1024], saved [B, 512], win_seq, win_seq_prev, use_kbd,
+    use_kbd_prev [B]) and returns (time [B, 1024], new_saved [B, 512])
+    on ``devices[0]``."""
+    devices = [resolve(d) for d in devices]
+
+    def step(coeffs, saved, win_seq, win_seq_prev, use_kbd, use_kbd_prev):
+        B, n = coeffs.shape[0], len(devices)
+        outs = []
+        for k, dev in enumerate(devices):
+            lo, hi = k * B // n, (k + 1) * B // n
+            if lo < hi:
+                args = [x[lo:hi].to(dev) for x in (
+                    coeffs, saved, win_seq, win_seq_prev, use_kbd,
+                    use_kbd_prev)]
+                outs.append(core_frame(*args, *consts(dev)))
+        return tuple(torch.cat([o[i].to(devices[0]) for o in outs])
+                     for i in range(2))
+
+    return step
+
+
+def _card_couple(couple, lo: int, hi: int, dev):
+    """The group's AFTER_IMDCT edges (``batch._flatten_couple``) whose
+    target lane lies in [lo, hi), rebased to the card's lanes, as tensors
+    on ``dev``; None where none does."""
+    if couple is None:
+        return None
+    etgt, etch, esrc, gains = couple
+    keep = (etgt >= lo) & (etgt < hi)
+    if not keep.any():
+        return None
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        etgt[keep] - lo, etch[keep], esrc[keep] - lo,
+        gains[:, keep].copy()))
+
+
+class ShardedQwireDecoder:
+    """``QwirePipelinedDecoder`` with each stream group's lanes spread
+    over ``devices`` (``make_devices()`` when None: every visible card,
+    so without a card the constructor raises).  The inner decoder
+    (``self.inner``, on ``devices[0]``) holds the profile, the grouping
+    and the host parse; each group is parsed once, its byte heap copied
+    whole to every card and its records cut by ``shard_bounds``, and
+    every card runs the qwire scan on its lanes (K1 once a frame on each
+    card that has lanes).  ``decode()`` returns one CPU int16 tensor
+    [Tg, L, 2, 2048] per group, lanes in the inner decoder's order (the
+    padding lanes of a short last group included), after every card is
+    done.  Raises ValueError when the lanes of a group do not divide by
+    the number of devices, as the JAX class does."""
+
+    def __init__(self, streams, devices=None, group_streams: int = 256,
+                 max_frames: int | None = None):
+        self.devices = [resolve(d) for d in (
+            make_devices() if devices is None else devices)]
+        self.inner = QwirePipelinedDecoder(streams, group_streams,
+                                           max_frames,
+                                           device=self.devices[0])
+        n = len(self.devices)
+        if self.inner.L % n:
+            raise ValueError(
+                f"{self.inner.L} lanes per group not divisible by {n} "
+                "devices")
+        self.bounds = shard_bounds(self.inner.G, self.inner.nl, n)
+
+    @property
+    def frame_counts(self) -> list:
+        return self.inner.frame_counts
+
+    @property
+    def error_count(self) -> int:
+        return self.inner.error_count
+
+    def audio_seconds(self) -> float:
+        return self.inner.audio_seconds()
+
+    def _upload(self, bufset: int, cur: int, Tg: int, couple) -> list:
+        """Staging set ``bufset`` -> per card (heap, records, coupling
+        edges) on the card, or None for a card without lanes; the heap
+        goes once to each distinct card.  Every CUDA copy is followed by
+        an event, all of which the next parse of this set waits on."""
+        dec = self.inner
+        heap_t, recs_t, _, _ = dec._bufsets[bufset]
+        n_up = min(cur + (1 << 18), dec._cap)
+        heaps, events, shards = {}, [], []
+        for dev, (lo, hi) in zip(self.devices, self.bounds):
+            if lo == hi:
+                shards.append(None)
+                continue
+            cuda = dev.type == "cuda"
+            if dev not in heaps:
+                heaps[dev] = heap_t[:n_up].to(dev, non_blocking=cuda)
+            recs_d = recs_t[:Tg, lo:hi].to(dev, non_blocking=cuda)
+            if cuda:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                events.append(ev)
+            shards.append((heaps[dev], recs_d.contiguous(),
+                           _card_couple(couple, lo, hi, dev)))
+        dec._uploaded[bufset] = events
+        return shards
+
+    def decode(self) -> list:
+        """Parse + upload + decode every group, the parse of group g+1 on
+        a worker thread (the native parser keeps static state: one
+        thread) while this thread issues group g on each card in turn."""
+        dec = self.inner
+        n = len(dec.streams)
+        ngroups = -(-n // dec.G)
+        dec.frame_counts = []
+        dec.error_count = 0
+        per_group = []
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(dec._parse_with_retry, 0)
+            for gidx in range(ngroups):
+                cur, Tg, sa, couple = fut.result()
+                shards = self._upload(gidx % 2, cur, Tg, couple)
+                if gidx + 1 < ngroups:
+                    fut = pool.submit(dec._parse_with_retry, gidx + 1)
+                pcms = []
+                for dev, (lo, hi), shard in zip(self.devices, self.bounds,
+                                                shards):
+                    if shard is None:
+                        continue
+                    heap_d, recs_d, couple_d = shard
+                    _, pcm = qwire_scan_decode(
+                        heap_d, recs_d, init_qwire_carry(hi - lo, dev),
+                        dec.is34, dec.ds, couple=couple_d, **sa)
+                    pcms.append(pcm)
+                per_group.append(pcms)
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        by_orig = [0] * n
+        for k, i in enumerate(dec.order):
+            by_orig[i] = dec.frame_counts[k]
+        dec.frame_counts = by_orig
+        return [torch.cat([p.cpu() for p in pcms], 1) for pcms in per_group]

@@ -10,6 +10,9 @@ from heaac_tpu_torch import (Decoder, cli, decode, decode_adts, decode_batch,
 from heaac_tpu_torch.codec.batch import (LcStreamBatchDecoder,
                                          QwirePipelinedDecoder)
 from heaac_tpu_torch.host import split_adts_stream
+from heaac_tpu_torch.parallel import multihost
+from heaac_tpu_torch.parallel.sharding import (ShardedQwireDecoder,
+                                               make_devices)
 from test_torch_common import REPO, bench_streams, golden_tool, streams_of
 
 
@@ -59,6 +62,29 @@ def test_front_doors_default_to_the_card(tmp_path):
             lambda: cli.main(["-i", path, out]))
     if torch.cuda.is_available():
         assert [run() for run in runs] == [48000, 48000, 0]
+        return
+    for run in runs:
+        with pytest.raises(RuntimeError, match="is_available"):
+            run()
+
+
+def test_parallel_layer_defaults_to_the_card(tmp_path):
+    """make_devices, ShardedQwireDecoder with no devices, the multihost
+    decode and its command line with no ``--device`` take the card: without
+    one they raise before any decode (the command line before it joins a
+    process group)."""
+    streams = bench_streams(2)
+    runs = (make_devices,
+            lambda: ShardedQwireDecoder(streams, max_frames=2),
+            lambda: multihost.decode_shard_and_reduce(streams),
+            lambda: multihost.main([
+                "--coordinator", "127.0.0.1:1", "--num-processes", "1",
+                "--process-id", "0", "--streams-dir", str(tmp_path)]))
+    if torch.cuda.is_available():
+        assert make_devices()[0].type == "cuda"
+        dec = ShardedQwireDecoder(bench_streams(torch.cuda.device_count()),
+                                  max_frames=2)
+        assert [d.type for d in dec.devices] == ["cuda"] * len(dec.devices)
         return
     for run in runs:
         with pytest.raises(RuntimeError, match="is_available"):

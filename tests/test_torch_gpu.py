@@ -7,8 +7,10 @@ a stream whose PS band mode flips through the flip scan, AAC-LC streams
 with a coupling channel (the LC planner and the coupled LC scan) beside
 an HE stream the native probe refuses (the Python prober and profile
 parse), the downsampled-SBR scan, the single-stream Decoder
-(``decode_adts``; K1 at one lane), and ``decode_m4a`` on the committed
-.m4a inputs.
+(``decode_adts``; K1 at one lane), ``decode_m4a`` on the committed
+.m4a inputs, and the parallel layer: ``ShardedQwireDecoder`` with two
+shards on one card and, with two cards or more, K1 on ``cuda:1`` while
+``cuda:0`` is current and the sharded decode across both cards.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -27,6 +29,7 @@ from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
 from heaac_tpu_torch.codec.planner import parse_stream_qwire
 from heaac_tpu_torch.host import R_W1, spec_static_args, split_adts_stream
 from heaac_tpu_torch.ops import ps_decorrelate as K
+from heaac_tpu_torch.parallel.sharding import ShardedQwireDecoder
 from test_torch_common import bench_streams, golden_tool, streams_of
 
 pytestmark = pytest.mark.gpu
@@ -38,6 +41,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
 
 
 @pytest.mark.parametrize("napb", [30, 50])
@@ -234,3 +244,49 @@ def test_decode_m4a_on_card_matches_cpu(cuda, monkeypatch):
         assert tuple(g.shape) == tuple(c.shape)
         assert int(c.abs().max()) > 1000
         assert int((g.int() - c.int()).abs().max()) <= 2, name
+
+
+def _sharded_vs_unsharded(devices):
+    """8 bench streams x 8 frames over ``devices``: (sharded pcm, the
+    unsharded decode's on devices[0], K1's napb-30 launches of the
+    sharded decode)."""
+    streams = bench_streams(8)
+    ref = QwirePipelinedDecoder(streams, max_frames=8,
+                                device=devices[0]).decode()[0].cpu()
+    before = K.launches[30]
+    got = ShardedQwireDecoder(streams, devices=devices,
+                              max_frames=8).decode()[0]
+    return got, ref, K.launches[30] - before
+
+
+def test_sharded_on_one_card_equals_unsharded(cuda):
+    """Two shards of 4 lanes on one card: K1 once a frame per shard, the
+    PCM equal to the unsharded decode's on the card."""
+    got, ref, launches = _sharded_vs_unsharded([cuda, cuda])
+    assert launches == 2 * 8
+    assert got.device.type == "cpu" and got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+def test_k1_on_second_card_matches_plain(two_cards):
+    """K1 on tensors on cuda:1 while cuda:0 is the current device (the
+    launcher raises the shared-memory limit on, and launches from, the
+    tensors' card), bit for bit against its plain version."""
+    dev = two_cards[1]
+    with torch.cuda.device(two_cards[0]):
+        for napb in (30, 50):
+            inp = K.random_inputs(256, napb, seed=napb)
+            args = [torch.from_numpy(inp[k]).to(dev) for k in NAMES]
+            got = K.decorrelate_seq(*args)
+            ref = K.decorrelate_plain(*args)
+            torch.cuda.synchronize(dev)
+            assert all(a.device == dev for a in got)
+            assert all(float((a - b).abs().max()) == 0.0
+                       for a, b in zip(got, ref))
+            assert K.ctas_per_sm(napb, dev) > 0
+
+
+def test_sharded_across_two_cards_equals_unsharded(two_cards):
+    got, ref, launches = _sharded_vs_unsharded(two_cards)
+    assert launches == 2 * 8
+    assert torch.equal(got, ref)

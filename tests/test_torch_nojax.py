@@ -14,7 +14,10 @@ AudioSpecificConfig (4 frames), against their JAX goldens; then
 stream against the JAX Decoder's golden (tests/data/single_golden_jax.npz);
 then ``decode`` on a committed .m4a (explicit SBR signalling: the
 ASC-configured Decoder) and the command line's ``--probe`` on it,
-against tests/data/front_golden_jax.npz."""
+against tests/data/front_golden_jax.npz; then imports both modules of
+the parallel layer and decodes two frames of two benchdata streams with
+``ShardedQwireDecoder`` over two CPU "devices", against the first
+golden."""
 import os
 import subprocess
 import sys
@@ -100,6 +103,12 @@ with contextlib.redirect_stdout(out):
 same = json.loads(out.getvalue()) == json.loads(
     str(fgold["probe_main_he20_explicit_0"]))
 print("FRONT", tuple(mpcm.shape), mrate, mdiff <= 2, rc, same)
+from heaac_tpu_torch.parallel import multihost  # noqa: F401
+from heaac_tpu_torch.parallel.sharding import ShardedQwireDecoder
+shpcm = ShardedQwireDecoder([data, data], devices=["cpu", "cpu"],
+                            max_frames=2).decode()[0].numpy()
+shdiff = int(np.abs(shpcm.astype(np.int32) - gold[:2, [0, 0]]).max())
+print("SHARDED", shpcm.shape, shdiff <= 2)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -128,3 +137,5 @@ def test_port_decodes_without_jax():
     assert single == "SINGLE (4096, 2) 48000 True", single
     front = [x for x in r.stdout.splitlines() if x.startswith("FRONT")][0]
     assert front == "FRONT (32768, 2) 48000 True 0 True", front
+    sharded = [x for x in r.stdout.splitlines() if x.startswith("SHARDED")][0]
+    assert sharded == "SHARDED (2, 2, 2, 2048) True", sharded

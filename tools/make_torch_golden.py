@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Write the JAX reference's PCM for the PyTorch port's checks.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir [name ...]]
+    JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir] [name ...]
 
-Writes ten goldens into tests/data (or out_dir), all from the JAX
-package on the CPU; with names (scan, batch, stereo, qwire, flip, lc,
-probe, ds, single, front) only those:
+Writes eleven goldens into tests/data (or out_dir), all from the JAX
+package on the CPU (with 8 virtual XLA devices); with names (scan,
+batch, stereo, qwire, flip, lc, probe, ds, single, front, sharded) only
+those:
 
   heaac_v2_golden_jax.npz      benchdata/heaac_bench_stream_{0,1}.aac
       parsed by its QwirePipelinedDecoder and decoded by its qwire scan,
@@ -102,6 +103,19 @@ probe, ds, single, front) only those:
       lc_core_24k_0 (``trace``, int64 [reads, 2]: pos, n;
       ``trace_values``, each value in hex: a skip's is as wide as the
       skip).
+  sharded_golden_jax.npz  its ``ShardedQwireDecoder`` on the 8-device
+      CPU mesh (``SHARDED_CASES``, first FRAMES frames): bench streams
+      0-7 on 4 devices (``he20``), stereo streams 0-3 (``stereo``) and
+      coupling streams after_{0,1,0,1} (``cce``) on 8, where JAX splits
+      every stream's lanes across devices: ``pcm_{case}`` (int16 [FRAMES,
+      8, 2, 2048]), ``frames_{case}``, ``errors_{case}``; its
+      ``error_count`` after each of two ``decode()`` calls over
+      ``SHARDED_ERRORS`` (``errors_short_group``: the padding copy of the
+      short last group counts again, and the calls add up); and its
+      ``QwirePipelinedDecoder`` over each round-robin half (rank r takes
+      streams r, r + 2) of ``multihost_streams()``:
+      ``multihost_frames_{r}``, ``multihost_errors_{r}``,
+      ``multihost_audio_{r}``.  ~10 min: five scan compiles.
 
 The 34-band, stereo, CCE, flip, LC + CCE and downsampled streams come
 from tools/make_torch_streams.py.
@@ -116,7 +130,9 @@ hold the LC planner, the prober and the profile parse to the sixth and
 seventh, tests/test_torch_downsampled.py and phase 8 the downsampled
 scan to the eighth, tests/test_torch_single.py and phase 9 the port's
 single-stream Decoder to the ninth, tests/test_torch_front.py and phase
-10 the port's front doors and CLI to the tenth.
+10 the port's front doors and CLI to the tenth, tests/test_torch_sharding.py,
+tests/test_torch_multihost.py and phase 11 the port's parallel layer to
+the eleventh.
 """
 import os
 import sys
@@ -227,6 +243,21 @@ FRONT_ADTS = (
     ("ds_0.aac", DS_FILE.format(0)),
     ("lc_0.aac", "benchdata/lc_core_24k_0.aac"),
 )
+SHARDED_GOLDEN = os.path.join(DATA, "sharded_golden_jax.npz")
+# the sharded golden's cases: name -> (file pattern, stream indices, mesh
+# devices); in JAX each device takes 8 / devices lanes, so every CPE pair
+# and every coupling channel's lanes are split across devices
+SHARDED_CASES = {
+    "he20": ("benchdata/heaac_bench_stream_{}.aac", range(8), 4),
+    "stereo": (STEREO_FILE, range(4), 8),
+    "cce": ("tests/data/heaac_cce_after_{}.aac", (0, 1, 0, 1), 8),
+}
+# a short last group whose stream has a corrupt frame: bench streams 1
+# and 2, then CORRUPT["he20_f1_0"], in groups of 2 over 2 devices,
+# first 4 frames (the last group is that stream and its padding copy)
+SHARDED_ERRORS = (("benchdata/heaac_bench_stream_1.aac",
+                   "benchdata/heaac_bench_stream_2.aac", "he20_f1_0"), 4)
+MULTIHOST_STREAMS, MULTIHOST_FRAMES = 4, 8
 TRACE_FILE = "benchdata/lc_core_24k_0.aac"
 TRACE_FRAMES = 2
 
@@ -899,17 +930,91 @@ def write_front_golden(out: str) -> None:
         + f"; trace {z['trace'].shape}")
 
 
+def sharded_streams(case: str, repo: str = REPO) -> list:
+    """A SHARDED_CASES case's streams as bytes."""
+    return [open(os.path.join(repo, pat.format(i)), "rb").read()
+            for pat, idxs, _ in [SHARDED_CASES[case]] for i in idxs]
+
+
+def multihost_streams(repo: str = REPO) -> list:
+    """The multihost test's streams: the first MULTIHOST_FRAMES ADTS
+    frames of each of MULTIHOST_STREAMS bench streams."""
+    from heaac_tpu_torch.host import split_adts_stream
+    return [b"".join(split_adts_stream(d)[:MULTIHOST_FRAMES])
+            for d in sharded_streams("he20", repo)[:MULTIHOST_STREAMS]]
+
+
+def sharded_golden() -> dict:
+    """Its ShardedQwireDecoder on the 8-device CPU mesh over each
+    SHARDED_CASES case, and over SHARDED_ERRORS twice; its
+    QwirePipelinedDecoder over each round-robin half of
+    ``multihost_streams()``."""
+    sys.path.insert(0, REPO)
+    import jax
+    if jax.device_count() < 8:
+        raise RuntimeError("the sharded golden needs 8 XLA devices: run "
+                           "its writer alone (main sets XLA_FLAGS)")
+    from heaac_tpu.codec.batch import QwirePipelinedDecoder
+    from heaac_tpu.parallel.sharding import ShardedQwireDecoder, make_mesh
+    z = {}
+    for case, (_, _, ndev) in SHARDED_CASES.items():
+        dec = ShardedQwireDecoder(sharded_streams(case), mesh=make_mesh(ndev),
+                                  max_frames=FRAMES)
+        outs = dec.decode()
+        z[f"pcm_{case}"] = np.asarray(outs[0]).astype(np.int16)
+        z[f"frames_{case}"] = np.array(dec.inner.frame_counts)
+        z[f"errors_{case}"] = np.int64(dec.inner.error_count)
+    files, frames = SHARDED_ERRORS
+    streams = [corrupted(f) if f in CORRUPT else
+               open(os.path.join(REPO, f), "rb").read() for f in files]
+    dec = ShardedQwireDecoder(streams, mesh=make_mesh(2), group_streams=2,
+                              max_frames=frames)
+    errors = []
+    for _ in range(2):
+        dec.decode()
+        errors.append(dec.inner.error_count)
+    z["errors_short_group"] = np.array(errors)
+    streams = multihost_streams()
+    for rank in range(2):
+        half = streams[rank::2]
+        dec = QwirePipelinedDecoder(half, group_streams=len(half))
+        jax.block_until_ready(dec.decode())
+        z[f"multihost_frames_{rank}"] = np.array(dec.frame_counts)
+        z[f"multihost_errors_{rank}"] = np.int64(dec.error_count)
+        z[f"multihost_audio_{rank}"] = np.float64(dec.audio_seconds())
+    return z
+
+
+def write_sharded_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(SHARDED_GOLDEN))
+    z = sharded_golden()
+    np.savez_compressed(path, **z)
+    print(f"wrote {path}: " + ", ".join(
+        f"{c} {z[f'pcm_{c}'].shape} on {SHARDED_CASES[c][2]} devices"
+        for c in SHARDED_CASES) + "; short last group's error_count over "
+        f"two decode() calls {z['errors_short_group'].tolist()}; multihost "
+        "frames " + ", ".join(str(z[f"multihost_frames_{r}"].tolist())
+                              for r in range(2)))
+
+
 WRITERS = {"scan": write_scan_golden, "batch": write_batch_golden,
            "stereo": write_stereo_golden, "qwire": write_qwire_golden,
            "flip": write_flip_golden, "lc": write_lc_golden,
            "probe": write_probe_golden, "ds": write_ds_golden,
-           "single": write_single_golden, "front": write_front_golden}
+           "single": write_single_golden, "front": write_front_golden,
+           "sharded": write_sharded_golden}
 
 
 def main() -> None:
-    out = sys.argv[1] if len(sys.argv) > 1 else DATA
+    args = sys.argv[1:]
+    out = DATA if not args or args[0] in WRITERS else args.pop(0)
     os.makedirs(out, exist_ok=True)
-    for name in sys.argv[2:] or WRITERS:
+    # the sharded golden's 8-device CPU mesh; set before jax is imported
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8").strip()
+    for name in args or WRITERS:
         WRITERS[name](out)
 
 
