@@ -155,7 +155,26 @@ Phases (any failure exits non-zero):
      50 K1 launches at napb 30; (d) with two cards or more, (a) on
      ["cuda:0", "cuda:1"] (K1 counted on each card) and (c) with NCCL
      on one card per rank, else it prints that cross-card runs were not
-     measured.
+     measured;
+ 12. the encode direction and the stream generators, host numpy: (a)
+     heaac_tpu_torch.codec.encoder.AacEncoder over every case of
+     tests/data/encode_golden_jax.npz (its seeded PCM: LC mono and
+     stereo at three rates, window switching, rate control, the twoloop
+     and anmr coders, AAC-Main, M/S, intensity, injected TNS), its bytes
+     against the JAX encoder's (per case the first ADTS frame apart),
+     the streams decoded by decode_batch with its default device within
+     2 LSB of the port's CPU decode and the round trip above 20 dB (no
+     K1: no PS); (b) 512 distinct HE-AAC v2 streams made here by
+     heaac_tpu_torch.io.heaac_testgen (the 8 bench cores crossed with
+     per-stream SBR and PS writer seeds, no SBR inverse filtering), the
+     first 8 against the JAX generators' sha256, decoded as one group by
+     QwirePipelinedDecoder with its default device, in turns with the
+     first 8 of them tiled to 512 lanes (tiled, distinct, distinct,
+     tiled, after a warm-up of each): K1 50 at napb 30 in each run, lanes 0-7 and 64k + 8 within
+     2 LSB of the port's CPU decode, realtime and ms a frame of each run
+     beside phase 4's; (c) ``cli.main`` in this
+     process, WAV in, ``-b 96k --ms``, to .aac and .m4a, both decoded by
+     ``heaac_tpu_torch.decode`` on the card to the same PCM, above 20 dB.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -213,6 +232,9 @@ FRONT_M4A = ("he20_0", "he20_explicit_0", "ds_0")
 PROFILE_FRAMES = 2             # phase 10 (b): frames under --profile
 SHARD_TOL_LSB = 1              # phase 11: sharded vs unsharded, golden
 MULTIHOST_TIMEOUT_S = 300      # phase 11 (c): each rank's own limit
+SNR_MIN_DB = 20.0              # phase 12: round-trip SNR (tests/test_io_cli.py)
+# phase 12 (b): lanes held to the CPU port: 0-7 and 8 spread over the batch
+DISTINCT_CHECKED = tuple(range(8)) + tuple(64 * k + 8 for k in range(8))
 FLUSH_BYTES = 128 << 20        # > 2.5x the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -1464,6 +1486,198 @@ def multihost_run(card: str, bench: list, backend: str, devices) -> dict:
     return {30: sum(int(info["k1_launches"]["30"]) for info, _ in lines)}
 
 
+def snr_db(pcm: np.ndarray, out: np.ndarray) -> float:
+    """Round-trip SNR of decoded ``out`` against encoder input ``pcm``
+    (the encoder's output is one 1024-sample frame late)."""
+    ref = pcm.astype(np.float64)
+    err = out[1024:1024 + len(pcm)].astype(np.float64) - ref
+    return float(10 * np.log10((ref ** 2).sum() / max((err ** 2).sum(), 1)))
+
+
+def first_frame_apart(a: bytes, b: bytes) -> int:
+    """The first ADTS frame where two streams differ (-1: none)."""
+    from heaac_tpu_torch.host import split_adts_stream
+    fa, fb = split_adts_stream(a), split_adts_stream(b)
+    for k, (x, y) in enumerate(zip(fa, fb)):
+        if x != y:
+            return k
+    return -1 if len(fa) == len(fb) else min(len(fa), len(fb))
+
+
+def encode_cases(K, card: str) -> None:
+    """Phase 12 (a): the port's AacEncoder over every case of the encode
+    golden (its PCM), bytes against the JAX encoder's; the streams
+    decoded by decode_batch with its default device (the card), within
+    TOL_LSB of the port's CPU decode of the same bytes, and the round
+    trip above SNR_MIN_DB; then the bytes must equal the golden's."""
+    from heaac_tpu_torch import decode_batch
+    from heaac_tpu_torch.codec.encoder import AacEncoder
+    tool = golden_tool()
+    with np.load(tool.ENCODE_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    names = list(tool.ENCODE_CASES)
+    t0 = time.perf_counter()
+    streams = [tool.encode_case(n, AacEncoder, gold[f"pcm_{n}"])
+               for n in names]
+    enc_s = time.perf_counter() - t0
+    apart = {n: first_frame_apart(d, gold[f"adts_{n}"].tobytes())
+             for n, d in zip(names, streams)}
+    apart = {n: f for n, f in apart.items() if f >= 0}
+    print(f"encoder: {len(names)} cases, {sum(map(len, streams))} bytes in "
+          f"{enc_s:.3f} s on the host; bytes equal to the JAX golden in "
+          f"{len(names) - len(apart)} cases"
+          + (f", apart from ADTS frame {apart} (case: frame)" if apart
+             else ""), flush=True)
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs = decode_batch(streams)
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    cpu = decode_batch(streams, device="cpu")
+    rows = {}
+    for n, out, ref in zip(names, outs, cpu):
+        d = int(np.abs(out.numpy().astype(np.int32) - ref.numpy()).max()) \
+            if out.shape == ref.shape else None
+        snr = snr_db(gold[f"pcm_{n}"], out.numpy())
+        rows[n] = (d, round(snr, 1))
+        if d is None or d > TOL_LSB or (
+                n not in tool.ENCODE_NO_SNR and not snr > SNR_MIN_DB):
+            raise SystemExit(f"phase 12 (a): {n}: card {tuple(out.shape)} "
+                             f"vs CPU {tuple(ref.shape)}, max {d} LSB, SNR "
+                             f"{snr:.1f} dB")
+    print(f"decode_batch on the card: {len(names)} streams in {wall:.3f} s "
+          f"on {card}; K1 launches {launches} (AAC-LC and Main: none); "
+          f"per case (max LSB vs port CPU, round-trip SNR dB; no SNR bound "
+          f"for {list(tool.ENCODE_NO_SNR)}): {rows}", flush=True)
+    if any(launches.values()):
+        raise SystemExit(f"phase 12 (a): K1 launched {launches} on AAC-LC "
+                         "and AAC-Main streams")
+    if apart:
+        raise SystemExit(f"phase 12 (a): encoder bytes differ from the JAX "
+                         f"golden's (case: first ADTS frame apart) {apart}")
+
+
+def distinct_streams(K, card: str, main4: dict) -> int:
+    """Phase 12 (b): LANES distinct HE-AAC v2 streams made here by the
+    port's generators (the 8 bench cores crossed with per-stream SBR and
+    PS writer seeds, ``heaac_testgen.distinct_stream``), the
+    first 8 against the JAX generators' sha256; decoded as one group by
+    QwirePipelinedDecoder with its default device, beside the first 8
+    of them tiled to LANES lanes (each its own buffer: phase 4's shape,
+    with the same writer recipe) in the same phase: a warm-up of each,
+    then timed runs in turns (tiled, distinct, distinct, tiled), each
+    with K1 once per frame at napb 30; lanes
+    DISTINCT_CHECKED within TOL_LSB of the port's CPU decode of the same
+    streams.  Prints realtime and ms a frame of each run and phase 4's.
+    Returns K1's napb-30 launches of the last timed distinct run."""
+    import hashlib
+    from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+    from heaac_tpu_torch.io import heaac_testgen
+    tool = golden_tool()
+    with np.load(tool.ENCODE_GOLDEN) as z:
+        sha = [str(h) for h in z["distinct_sha256"]]
+    cores = tool.bench_cores(REPO)
+    t0 = time.perf_counter()
+    streams = [heaac_testgen.distinct_stream(cores, i)
+               for i in range(LANES)]
+    gen_s = time.perf_counter() - t0
+    got = [hashlib.sha256(d).hexdigest() for d in streams[:len(sha)]]
+    print(f"generators: {LANES} distinct HE-AAC v2 streams "
+          f"({len(set(streams))} distinct, {sum(map(len, streams))} bytes) "
+          f"made in {gen_s:.3f} s on the host; first {len(sha)} sha256 "
+          f"equal to the JAX golden's: {got == sha}", flush=True)
+    if got != sha or len(set(streams)) != LANES:
+        raise SystemExit("phase 12 (b): the generated streams differ from "
+                         "the JAX generators' or repeat")
+    tiled = [bytes(bytearray(streams[i % 8])) for i in range(LANES)]
+    decs = {"distinct": QwirePipelinedDecoder(streams, group_streams=LANES),
+            "tiled": QwirePipelinedDecoder(tiled, group_streams=LANES)}
+    for dec in decs.values():
+        dec.decode()                               # warm-up
+    walls = {"distinct": [], "tiled": []}
+    for name in ("tiled", "distinct", "distinct", "tiled"):
+        reset_launches(K)
+        t0 = time.perf_counter()
+        outs = decs[name].decode()
+        walls[name].append(time.perf_counter() - t0)
+        launches = dict(K.launches)
+        T = outs[0].shape[0]
+        if launches != {30: T, 50: 0} or T != 50:
+            raise SystemExit(f"phase 12 (b): {name}: K1 launched "
+                             f"{launches} for {T} frames of 20-band PS")
+        if name == "distinct":
+            pcm = outs[0].cpu().numpy()            # [T, L, 2, 2048]
+            distinct30 = launches[30]
+    audio_s = decs["distinct"].audio_seconds()
+
+    def rate(w: float) -> str:
+        return f"{audio_s / w:.1f}x / {1e3 * w / T:.1f} ms"
+
+    ratio = sum(walls["tiled"]) / sum(walls["distinct"])
+    print(f"distinct vs tiled, {LANES} lanes x {T} frames, realtime / ms a "
+          f"frame in turns: tiled {rate(walls['tiled'][0])}, distinct "
+          f"{rate(walls['distinct'][0])}, distinct "
+          f"{rate(walls['distinct'][1])}, tiled {rate(walls['tiled'][1])}; "
+          f"distinct at {ratio:.3f}x the tiled realtime; phase 4 (the 8 "
+          f"bench streams tiled, this call) {main4['rt']:.1f}x / "
+          f"{1e3 * main4['wall'] / main4['pcm'].shape[0]:.1f} ms; on {card}",
+          flush=True)
+    peak = np.abs(pcm.astype(np.int32)).max(axis=(0, 2, 3))
+    if not (peak > 0).all():
+        raise SystemExit(f"silent lanes: {np.flatnonzero(peak == 0)}")
+    idx = list(DISTINCT_CHECKED)
+    ref = QwirePipelinedDecoder([streams[i] for i in idx],
+                                group_streams=len(idx),
+                                device="cpu").decode()[0].numpy()
+    d = int(np.abs(pcm[:, idx].astype(np.int32) - ref).max())
+    print(f"lanes {idx} vs port CPU: max {d} LSB", flush=True)
+    if d > TOL_LSB:
+        raise SystemExit("phase 12 (b): card output differs from the CPU "
+                         "port")
+    return distinct30
+
+
+def encode_cli(K, card: str) -> None:
+    """Phase 12 (c): ``cli.main`` in this process, WAV in, ``-b 96k
+    --ms``, to .aac and to .m4a (tests/test_io_cli.py's case: 1 s of
+    24 kHz stereo tones); both decoded by ``heaac_tpu_torch.decode`` with
+    its default device to the same PCM, the tone kept above SNR_MIN_DB."""
+    import tempfile
+    from heaac_tpu_torch import decode
+    from heaac_tpu_torch.io.wav import write_wav
+    rate = 24000
+    t = np.arange(rate, dtype=np.float64) / rate
+    pcm = np.stack([6000 * np.sin(2 * np.pi * 440 * t),
+                    4000 * np.sin(2 * np.pi * 660 * t)], 1).astype(np.int16)
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.wav")
+        write_wav(src, pcm, rate)
+        for ext in (".aac", ".m4a"):
+            dst = os.path.join(tmp, "out" + ext)
+            rc, _, err, warns = cli_in_process(
+                ["-i", src, "-b", "96k", "--ms", "--benchmark", dst])
+            if rc != 0 or warns:
+                raise SystemExit(f"phase 12 (c): cli to {ext}: rc {rc}, "
+                                 f"warnings {warns}, {err}")
+            with open(dst, "rb") as f:
+                data = f.read()
+            reset_launches(K)
+            out, out_rate = decode(data)
+            outs[ext] = (out.numpy(), out_rate, len(data),
+                         json.loads(err.splitlines()[0]), dict(K.launches))
+    (a, ra, na, ma, ka), (b, rb, nb, mb, kb) = outs[".aac"], outs[".m4a"]
+    snr = snr_db(pcm, a)
+    print(f"cli -b 96k --ms: .aac {na} bytes {ma}, .m4a {nb} bytes {mb}; "
+          f"decode on {card}: {a.shape} @ {ra} Hz and {b.shape} @ {rb} Hz, "
+          f"equal {np.array_equal(a, b)}, SNR {snr:.1f} dB; K1 launches "
+          f"{ka}, {kb}", flush=True)
+    if (ra, rb) != (rate, rate) or not np.array_equal(a, b) \
+            or not snr > SNR_MIN_DB or any(ka.values()) or any(kb.values()):
+        raise SystemExit("phase 12 (c): the two containers decode apart or "
+                         "the tone is lost")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1589,6 +1803,12 @@ def main() -> None:
         print("cross-card: not measured (1 card)", flush=True)
     phase_done("11 parallel layer")
 
+    # ---- 12. the encode direction and the stream generators ---------------
+    encode_cases(K, card)
+    distinct30 = distinct_streams(K, card, main4)
+    encode_cli(K, card)
+    phase_done("12 encoder, generators and the encode CLI")
+
     row = dict(krows[30])
     row.pop("max_abs_err")
     print(json.dumps({"kernels": [{
@@ -1664,6 +1884,13 @@ def main() -> None:
         "launches_phase11d_path": "phase 11 (d): (a) on [cuda:0, cuda:1], "
                                   "per card, and (c) with NCCL, one card a "
                                   "rank; null: not measured (1 card)",
+        "launches_phase12b_napb30": distinct30,
+        "launches_phase12b_napb30_path": "phase 12 (b): "
+                                         "QwirePipelinedDecoder, "
+                                         f"{LANES} distinct HE-AAC v2 "
+                                         "streams made by the port's "
+                                         "generators x 50 frames, the "
+                                         "last timed distinct run",
         "b1": k1_b1}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
-"""Command-line decoder of the PyTorch port: ADTS AAC / HE-AAC / M4A in,
-WAV (or raw PCM) out, on the card unless ``--device cpu``.
+"""Command-line transcoder of the PyTorch port: ADTS AAC / HE-AAC / M4A
+in, WAV (or raw PCM) out, decoded on the card unless ``--device cpu`` --
+and WAV in, AAC (ADTS or .m4a) out, encoded on the host.
 
-The decode half of ``heaac_tpu/cli.py`` (``probe``, ``_run_m4a_direct``,
-``main``'s decode route; names as there): the FATE-style end-to-end
+The port of ``heaac_tpu/cli.py`` (``probe``, ``_run_m4a_direct``,
+``_run_encode``, ``main``; names as there): the FATE-style end-to-end
 harness mirroring the reference `ffmpeg -i in.aac out.wav` decode loop
-(ffmpeg.c).  The encode direction (WAV in) stays with the JAX package's
-``python -m heaac_tpu.cli``.  Usage:
+(ffmpeg.c) and its `ffmpeg -i in.wav out.aac` encode direction
+(aacenc.c via the same CLI).  The encoder is host numpy
+(``codec/encoder.py``), so ``--device`` does not change an encode.
+Usage:
 
     python -m heaac_tpu_torch.cli -i in.aac out.wav
     python -m heaac_tpu_torch.cli -i in.m4a -f s16le out.pcm
     python -m heaac_tpu_torch.cli -i in.aac --probe
     python -m heaac_tpu_torch.cli -i in.aac out.wav --device cpu
+    python -m heaac_tpu_torch.cli -i in.wav -b 64k out.aac
+    python -m heaac_tpu_torch.cli -i in.wav --coder anmr out.m4a
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import argparse
 import contextlib
 import json
 import sys
+import time
 
 import numpy as np
 
@@ -113,12 +119,64 @@ def _run_m4a_direct(args, data: bytes) -> int:
     return 0
 
 
+def _run_encode(args, path: str) -> int:
+    """WAV in -> AAC out (the ffmpeg encode direction, aacenc.c analogue).
+
+    Output container by extension: .aac/.adts = ADTS byte stream
+    (adtsenc.c), .m4a/.mp4 = MP4 audio track (movenc.c audio-only layout).
+    """
+    from .codec.encoder import AacEncoder
+    from .io.wav import read_wav
+
+    if args.output is None:
+        print("error: output path required", file=sys.stderr)
+        return 1
+    pcm, rate = read_wav(path)
+    if pcm.shape[1] > 2:
+        print(f"error: {pcm.shape[1]}-channel encode not supported "
+              "(mono or stereo only)", file=sys.stderr)
+        return 1
+    bitrate = None
+    if args.bitrate:
+        s = args.bitrate.lower().rstrip("bps").rstrip(" ")
+        bitrate = int(float(s[:-1]) * 1000) if s.endswith("k") else int(s)
+    t0 = time.time()
+    enc = AacEncoder(rate, pcm.shape[1],
+                     object_type=1 if args.aot == "main" else 2,
+                     bitrate=bitrate, coder=args.coder,
+                     ms=args.ms, intensity=args.intensity)
+    adts = enc.encode(pcm)
+    wall = time.time() - t0
+
+    out = args.output
+    if out.endswith((".m4a", ".mp4")):
+        from .io.adts import adts_to_asc
+        from .io.mp4 import mux_m4a
+        asc, frames = adts_to_asc(adts)
+        payload = mux_m4a(frames, asc, rate, pcm.shape[1])
+    else:
+        payload = adts
+    with open(out, "wb") as f:
+        f.write(payload)
+    dur = len(pcm) / max(rate, 1)
+    if args.benchmark:
+        print(json.dumps(dict(wall_s=round(wall, 3),
+                              realtime_x=round(dur / wall, 2) if wall else 0,
+                              bytes=len(payload))), file=sys.stderr)
+    print(f"encoded {len(pcm)} samples x {pcm.shape[1]} ch @ {rate} Hz -> "
+          f"{len(payload)} bytes "
+          f"({round(8 * len(adts) / dur) if dur else 0} b/s)",
+          file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m heaac_tpu_torch.cli")
     ap.add_argument("-i", "--input", required=True,
-                    help="input ADTS/.m4a file to decode")
+                    help="input ADTS/.m4a file to decode, or .wav to encode")
     ap.add_argument("output", nargs="?", default=None,
-                    help="output path: .wav or raw s16le pcm")
+                    help="output path: .wav/raw s16le pcm (decode) or "
+                         ".aac/.m4a (encode)")
     ap.add_argument("--probe", action="store_true",
                     help="print stream info as JSON without decoding "
                          "(ffprobe analogue)")
@@ -136,7 +194,20 @@ def main(argv=None) -> int:
                          "(get_bits_trace analogue; forces the slow path)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the decode (default cuda; cpu "
-                         "to run without a card)")
+                         "to run without a card); an encode runs on the "
+                         "host")
+    enc = ap.add_argument_group("encode options (WAV input)")
+    enc.add_argument("-b", "--bitrate", default=None,
+                     help="target bitrate, e.g. 64k or 128000")
+    enc.add_argument("--aot", choices=("lc", "main"), default="lc",
+                     help="audio object type (default lc)")
+    enc.add_argument("--coder", choices=("twoloop", "anmr"),
+                     default="twoloop",
+                     help="scalefactor/codebook search strategy")
+    enc.add_argument("--ms", action="store_true",
+                     help="enable mid/side stereo coding")
+    enc.add_argument("--intensity", action="store_true",
+                     help="enable intensity stereo coding")
     args = ap.parse_args(argv)
 
     from .bitstream.adts import (parse_adts_header, probe_adts,
@@ -151,9 +222,7 @@ def main(argv=None) -> int:
     with open(args.input, "rb") as f:
         data = f.read()
     if data[:4] == b"RIFF" and data[8:12] == b"WAVE":
-        print("error: WAV input is the encode direction, which this port "
-              "does not carry; use python -m heaac_tpu.cli", file=sys.stderr)
-        return 2
+        return _run_encode(args, args.input)
     container = None
     if probe_m4a(data):
         # MP4/M4A input (the mov.c path): re-wrap the AAC track as ADTS

@@ -365,11 +365,18 @@ def test_cli_bit_trace_prints_every_read(tmp_path):
 
 
 def test_cli_refuses_wav_input(tmp_path):
-    """The encode direction stays with the JAX package's CLI."""
+    """The encode refusal that stands: a WAV of more than two channels
+    exits 1 with "mono or stereo only" in both CLIs, writing nothing."""
+    from heaac_tpu import cli as jax_cli
     src = tmp_path / "in.wav"
-    write_wav(str(src), np.zeros((16, 1), np.int16), 24000)
-    rc, _, err = _main(["-i", str(src), str(tmp_path / "out.aac")])
-    assert rc == 2 and "python -m heaac_tpu.cli" in err
+    write_wav(str(src), np.zeros((16, 3), np.int16), 24000)
+    for main in (cli.main, jax_cli.main):
+        dst = tmp_path / "out.aac"
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = main(["-i", str(src), str(dst)])
+        assert rc == 1 and "mono or stereo only" in err.getvalue()
+        assert not dst.exists()
 
 
 def test_cli_module_entry():

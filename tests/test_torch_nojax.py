@@ -17,7 +17,11 @@ ASC-configured Decoder) and the command line's ``--probe`` on it,
 against tests/data/front_golden_jax.npz; then imports both modules of
 the parallel layer and decodes two frames of two benchdata streams with
 ``ShardedQwireDecoder`` over two CPU "devices", against the first
-golden."""
+golden; then encodes one case of tests/data/encode_golden_jax.npz with
+the port's AacEncoder and makes the first distinct HE-AAC v2 stream
+with its generators (``splice_sbr_into_lc`` with an SBR and a PS
+writer), equal to the JAX encoder's bytes and the JAX generators'
+sha256 in that golden."""
 import os
 import subprocess
 import sys
@@ -109,6 +113,18 @@ shpcm = ShardedQwireDecoder([data, data], devices=["cpu", "cpu"],
                             max_frames=2).decode()[0].numpy()
 shdiff = int(np.abs(shpcm.astype(np.int32) - gold[:2, [0, 0]]).max())
 print("SHARDED", shpcm.shape, shdiff <= 2)
+import hashlib, importlib.util
+from heaac_tpu_torch.codec.encoder import AacEncoder
+from heaac_tpu_torch.io import heaac_testgen
+spec = importlib.util.spec_from_file_location(
+    "make_torch_golden", REPO + "/tools/make_torch_golden.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+egold = np.load(tool.ENCODE_GOLDEN)
+adts = tool.encode_case("lc_mono_24k", AacEncoder, egold["pcm_lc_mono_24k"])
+he = heaac_testgen.distinct_stream(tool.bench_cores(REPO), 0)
+print("ENCODE", adts == egold["adts_lc_mono_24k"].tobytes(),
+      hashlib.sha256(he).hexdigest() == str(egold["distinct_sha256"][0]))
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -139,3 +155,5 @@ def test_port_decodes_without_jax():
     assert front == "FRONT (32768, 2) 48000 True 0 True", front
     sharded = [x for x in r.stdout.splitlines() if x.startswith("SHARDED")][0]
     assert sharded == "SHARDED (2, 2, 2, 2048) True", sharded
+    encode = [x for x in r.stdout.splitlines() if x.startswith("ENCODE")][0]
+    assert encode == "ENCODE True True", encode

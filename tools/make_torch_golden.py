@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Write the JAX reference's PCM for the PyTorch port's checks.
+"""Write the JAX reference's outputs for the PyTorch port's checks.
 
     JAX_PLATFORMS=cpu python tools/make_torch_golden.py [out_dir] [name ...]
 
-Writes eleven goldens into tests/data (or out_dir), all from the JAX
+Writes twelve goldens into tests/data (or out_dir), all from the JAX
 package on the CPU (with 8 virtual XLA devices); with names (scan,
-batch, stereo, qwire, flip, lc, probe, ds, single, front, sharded) only
-those:
+batch, stereo, qwire, flip, lc, probe, ds, single, front, sharded,
+encode) only those:
 
   heaac_v2_golden_jax.npz      benchdata/heaac_bench_stream_{0,1}.aac
       parsed by its QwirePipelinedDecoder and decoded by its qwire scan,
@@ -116,6 +116,13 @@ those:
       streams r, r + 2) of ``multihost_streams()``:
       ``multihost_frames_{r}``, ``multihost_errors_{r}``,
       ``multihost_audio_{r}``.  ~10 min: five scan compiles.
+  encode_golden_jax.npz  its AacEncoder (host numpy) over every
+      ``ENCODE_CASES`` case: ``cases`` (the table as JSON), ``pcm_{name}``
+      (the seeded int16 input, ``encode_pcm``) and ``adts_{name}`` (its
+      bytes, uint8); and ``distinct_sha256``, the sha256 of the first
+      DISTINCT_GOLDEN_N distinct HE-AAC v2 streams its generators make
+      (the port's ``heaac_testgen.distinct_stream`` recipe, drawn
+      with the JAX writers).  ~30 s, nothing compiled.
 
 The 34-band, stereo, CCE, flip, LC + CCE and downsampled streams come
 from tools/make_torch_streams.py.
@@ -132,7 +139,8 @@ scan to the eighth, tests/test_torch_single.py and phase 9 the port's
 single-stream Decoder to the ninth, tests/test_torch_front.py and phase
 10 the port's front doors and CLI to the tenth, tests/test_torch_sharding.py,
 tests/test_torch_multihost.py and phase 11 the port's parallel layer to
-the eleventh.
+the eleventh, tests/test_torch_encoder.py, tests/test_torch_nojax.py and
+phase 12 the port's encoder and generators to the twelfth.
 """
 import os
 import sys
@@ -260,6 +268,38 @@ SHARDED_ERRORS = (("benchdata/heaac_bench_stream_1.aac",
 MULTIHOST_STREAMS, MULTIHOST_FRAMES = 4, 8
 TRACE_FILE = "benchdata/lc_core_24k_0.aac"
 TRACE_FRAMES = 2
+ENCODE_GOLDEN = os.path.join(DATA, "encode_golden_jax.npz")
+# the encoder's cases (tests/test_encoder.py's, cut to a few frames):
+# name -> (sample rate, channels, signal, encoder keyword arguments);
+# signal "tone" is test_encoder.py's two tones per channel, "bursts" adds
+# a Hann-windowed noise burst every 3072 samples (short windows); both
+# with seeded noise
+ENCODE_CASES = {
+    "lc_mono_44k": (44100, 1, "tone", {}),
+    "lc_mono_24k": (24000, 1, "tone", {}),
+    "lc_stereo_48k": (48000, 2, "tone", {}),
+    "window_switching": (48000, 1, "bursts", {}),
+    "rate_48k": (44100, 1, "tone", {"bitrate": 48000}),
+    "rate_96k": (44100, 1, "tone", {"bitrate": 96000}),
+    "twoloop_64k": (44100, 1, "tone", {"bitrate": 64000}),
+    "anmr_64k": (44100, 1, "bursts", {"bitrate": 64000, "coder": "anmr"}),
+    "main_mono": (44100, 1, "tone", {"object_type": 1}),
+    "main_stereo": (44100, 2, "tone", {"object_type": 1}),
+    "ms": (24000, 2, "tone", {"bitrate": 96000, "ms": True}),
+    "intensity": (24000, 2, "tone", {"bitrate": 48000, "intensity": True}),
+    "tns_inject": (24000, 1, "tone", {
+        "bitrate": 32000, "window_switching": False,
+        "tns_inject": {"coefs": [2, 5, 3], "coef_res": 0}}),
+}
+# ADTS frames a case encodes (the encoder adds a lead-in frame): 8; 5
+# where it runs its rate loop (a bitrate), which costs 4-5x a frame, and
+# 4 where it does so on a stereo pair (the case stays under 3 s a test)
+ENCODE_FRAMES = {(False, 1): 8, (False, 2): 8, (True, 1): 5, (True, 2): 4}
+# tns_inject writes filter data the encoder never applied, so its output
+# does not reproduce its input: no round-trip SNR for it
+ENCODE_NO_SNR = ("tns_inject",)
+# the distinct HE-AAC v2 streams whose sha256 the encode golden holds
+DISTINCT_GOLDEN_N = 8
 
 
 def batch_streams(repo: str = REPO) -> list:
@@ -997,12 +1037,77 @@ def write_sharded_golden(out: str) -> None:
                               for r in range(2)))
 
 
+def encode_frames(name: str) -> int:
+    _, ch, _, kw = ENCODE_CASES[name]
+    return ENCODE_FRAMES["bitrate" in kw, ch]
+
+
+def encode_pcm(name: str) -> np.ndarray:
+    """ENCODE_CASES case ``name``'s int16 [n, ch] input, made from a seed
+    (its index in ENCODE_CASES): encode_frames(name) ADTS frames."""
+    rate, ch, signal, _ = ENCODE_CASES[name]
+    n = (encode_frames(name) - 1) * 1024
+    rng = np.random.default_rng(list(ENCODE_CASES).index(name))
+    t = np.arange(n) / rate
+    x = np.stack([0.5 * np.sin(2 * np.pi * (440 + 210 * c) * t)
+                  + 0.2 * np.sin(2 * np.pi * (1500 + 80 * c) * t)
+                  + 0.001 * rng.standard_normal(n) for c in range(ch)], -1)
+    if signal == "bursts":
+        for p in range(1536, n - 96, 3072):
+            x[p:p + 96] += (np.hanning(96)[:, None]
+                            * rng.standard_normal((96, ch)) * 0.2)
+    return np.clip(x * 14000, -32768, 32767).astype(np.int16)
+
+
+def encode_case(name: str, encoder_cls, pcm: np.ndarray) -> bytes:
+    """``encoder_cls`` (the JAX or the port's AacEncoder) over ``pcm``
+    with case ``name``'s rate, channels and options."""
+    rate, ch, _, kw = ENCODE_CASES[name]
+    return encoder_cls(rate, ch, **kw).encode(pcm)
+
+
+def bench_cores(repo: str = REPO) -> list:
+    return [open(os.path.join(repo, "benchdata", f"lc_core_24k_{i}.aac"),
+                 "rb").read() for i in range(8)]
+
+
+def encode_golden() -> dict:
+    """Its AacEncoder over every ENCODE_CASES case and the sha256 of its
+    generators' first DISTINCT_GOLDEN_N distinct streams."""
+    import hashlib
+    import json
+    sys.path.insert(0, REPO)
+    from heaac_tpu.codec.encoder import AacEncoder
+    from heaac_tpu.io import heaac_testgen
+    from heaac_tpu_torch.io.heaac_testgen import distinct_stream
+    z = {"cases": np.array(json.dumps(ENCODE_CASES, sort_keys=True))}
+    for name in ENCODE_CASES:
+        z[f"pcm_{name}"] = encode_pcm(name)
+        z[f"adts_{name}"] = np.frombuffer(
+            encode_case(name, AacEncoder, z[f"pcm_{name}"]), np.uint8)
+    cores = bench_cores()
+    z["distinct_sha256"] = np.array([
+        hashlib.sha256(distinct_stream(cores, i, gen=heaac_testgen))
+        .hexdigest()
+        for i in range(DISTINCT_GOLDEN_N)])
+    return z
+
+
+def write_encode_golden(out: str) -> None:
+    path = os.path.join(out, os.path.basename(ENCODE_GOLDEN))
+    z = encode_golden()
+    np.savez_compressed(path, **z)
+    print(f"wrote {path}: " + ", ".join(
+        f"{n} {len(z[f'adts_{n}'])} bytes" for n in ENCODE_CASES)
+        + f"; {DISTINCT_GOLDEN_N} distinct streams' sha256")
+
+
 WRITERS = {"scan": write_scan_golden, "batch": write_batch_golden,
            "stereo": write_stereo_golden, "qwire": write_qwire_golden,
            "flip": write_flip_golden, "lc": write_lc_golden,
            "probe": write_probe_golden, "ds": write_ds_golden,
            "single": write_single_golden, "front": write_front_golden,
-           "sharded": write_sharded_golden}
+           "sharded": write_sharded_golden, "encode": write_encode_golden}
 
 
 def main() -> None:

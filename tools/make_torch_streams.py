@@ -1,18 +1,21 @@
 #!/usr/bin/env python
 """Write the test streams of the PyTorch port.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_streams.py [out_dir [kind ...]]
+    python tools/make_torch_streams.py [out_dir [kind ...]]
 
-Every stream is made here from the repo's own encoder and SBR / PS / CCE
-splicers (no downloaded data), all written to tests/data (or out_dir)
-and committed: chip_smoke.py and the tests read them as files.  With
+Every stream is made here from the port's own encoder and SBR / PS / CCE
+splicers (``heaac_tpu_torch.codec.encoder``,
+``heaac_tpu_torch.io.heaac_testgen``: no downloaded data, no jax, so it
+runs on a machine without jax too), all written to tests/data (or
+out_dir) and committed: chip_smoke.py and the tests read them as files.  With
 kinds (he34, stereo, cce, flip, lc_cce, ds) only those are written;
 every stream is deterministic, so a rerun rewrites each byte for byte.
 
 heaac_v2_34band_{i}.aac, i in 0..7 (48 kHz stereo out): SBR + 34-band
 parametric stereo spliced into the bundled LC cores
-(benchdata/lc_core_24k_{i}.aac, 24 kHz mono, 50 frames) the way bench.py
-makes its distinct streams (its writer seeds).  PS runs at iid_mode /
+(benchdata/lc_core_24k_{i}.aac, 24 kHz mono, 50 frames) by the port's
+distinct-stream recipe (``heaac_testgen.distinct_stream``: bench.py's
+writer seeds), each PS payload at most PS_MAX_BYTES.  PS runs at iid_mode /
 icc_mode 2 (34 bands, coarse IID quantisation); stream 1 uses iid_mode 5
 (fine quantisation), stream 2 enables IPD/OPD, stream 3 both.  Checked
 with the native probe (is34 = 1).
@@ -126,7 +129,7 @@ def ds_asc() -> bytes:
     """The downsampled streams' AudioSpecificConfig: AOT 5 (SBR), rate
     index 6 (24 kHz), 1 channel, extension rate index 6, AOT 2 (LC),
     then GASpecificConfig's three zero bits."""
-    from heaac_tpu.io.bitwriter import BitWriter
+    from heaac_tpu_torch.io.bitwriter import BitWriter
     bw = BitWriter()
     for nbits, value in ((5, 5), (4, 6), (4, 1), (4, 6), (5, 2), (3, 0)):
         bw.put(nbits, value)
@@ -135,28 +138,14 @@ def ds_asc() -> bytes:
 
 
 def make_stream(i: int, invf_modes=INVF_MODES) -> bytes:
-    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
-                                            splice_sbr_into_lc)
-    core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{i}.aac"),
-                "rb").read()
+    """34-band stream i: the distinct-stream recipe over core i."""
+    from heaac_tpu_torch.io.heaac_testgen import distinct_stream
+    cores = [open(os.path.join(REPO, "benchdata", f"lc_core_24k_{j}.aac"),
+                  "rb").read() for j in range(N)]
     iid_mode, ipdopd = MODES.get(i, (2, False))
-    for tries in range(8):
-        # a rare parameter draw overflows the single-FIL payload bound
-        # (269 bytes); re-draw deterministically, as bench.py does
-        try:
-            ps = PsStreamWriter(seed=2000 + 5 * i,
-                                iid_mode=iid_mode, icc_mode=2,
-                                enable_ipdopd=ipdopd)
-            ps.ps_payload = functools.partial(
-                PsStreamWriter.ps_payload, ps, max_bytes=PS_MAX_BYTES)
-            w = SbrStreamWriter(
-                core_rate=CORE_RATE, is_cpe=False, env_hi_shift=-12,
-                seed=1000 + 7 * i + 1000003 * tries,
-                invf_modes=invf_modes, ps_writer=ps)
-            return splice_sbr_into_lc(core, w)
-        except AssertionError:
-            continue
-    raise RuntimeError(f"stream {i}: could not fit the FIL payload")
+    return distinct_stream(cores, i, invf_modes=invf_modes,
+                           ps_max_bytes=PS_MAX_BYTES, iid_mode=iid_mode,
+                           icc_mode=2, enable_ipdopd=ipdopd)
 
 
 def flip_trail(i: int, frames: int) -> list:
@@ -170,7 +159,7 @@ def flip_trail(i: int, frames: int) -> list:
 
 
 def make_flip_stream(i: int) -> bytes:
-    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
+    from heaac_tpu_torch.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
                                             splice_sbr_into_lc)
     core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{i}.aac"),
                 "rb").read()
@@ -190,14 +179,14 @@ def make_flip_stream(i: int) -> bytes:
                 seed=1500 + 7 * i + 1000003 * tries,
                 invf_modes=INVF_MODES, ps_writer=ps)
             return splice_sbr_into_lc(core, w)
-        except AssertionError:
+        except ValueError:
             continue
     raise RuntimeError(f"flip stream {i}: could not fit the FIL payload")
 
 
 def make_flip_cce_stream() -> bytes:
-    from heaac_tpu.bitstream.aac_syntax import T as TT
-    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
+    from heaac_tpu_torch import tables as TT
+    from heaac_tpu_torch.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
                                             splice_cce_into_lc,
                                             splice_sbr_multi)
     core = open(os.path.join(REPO, "benchdata",
@@ -212,14 +201,14 @@ def make_flip_cce_stream() -> bytes:
 
 
 def make_lc_cce_stream(point: str, j: int) -> bytes:
-    from heaac_tpu.io.heaac_testgen import splice_cce_into_lc
+    from heaac_tpu_torch.io.heaac_testgen import splice_cce_into_lc
     core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{j}.aac"),
                 "rb").read()
     return splice_cce_into_lc(core, coupling_point=point, seed=j)
 
 
 def make_ds_stream(i: int) -> bytes:
-    from heaac_tpu.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
+    from heaac_tpu_torch.io.heaac_testgen import (PsStreamWriter, SbrStreamWriter,
                                             splice_sbr_into_lc)
     core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{i}.aac"),
                 "rb").read()
@@ -314,8 +303,8 @@ def stereo_pcm(i: int) -> np.ndarray:
 
 
 def make_stereo_stream(i: int) -> bytes:
-    from heaac_tpu.codec.encoder import AacEncoder
-    from heaac_tpu.io.heaac_testgen import SbrStreamWriter, splice_sbr_into_lc
+    from heaac_tpu_torch.codec.encoder import AacEncoder
+    from heaac_tpu_torch.io.heaac_testgen import SbrStreamWriter, splice_sbr_into_lc
     core = AacEncoder(CORE_RATE, 2, bitrate=64000, ms=True,
                       window_switching=bool(i % 2)).encode(stereo_pcm(i))
     # envelopes 2 steps lower than the mono streams': the coupled pair's
@@ -327,8 +316,8 @@ def make_stereo_stream(i: int) -> bytes:
 
 
 def make_cce_stream(point: str, j: int) -> bytes:
-    from heaac_tpu.bitstream.aac_syntax import T as TT
-    from heaac_tpu.io.heaac_testgen import (SbrStreamWriter,
+    from heaac_tpu_torch import tables as TT
+    from heaac_tpu_torch.io.heaac_testgen import (SbrStreamWriter,
                                             splice_cce_into_lc,
                                             splice_sbr_multi)
     core = open(os.path.join(REPO, "benchdata", f"lc_core_24k_{j}.aac"),
@@ -410,9 +399,8 @@ def check_cce(point: str, j: int, data: bytes) -> str:
 
 def main() -> None:
     sys.path.insert(0, REPO)
-    from heaac_tpu import native
-    from heaac_tpu.bitstream.adts import parse_adts_header
-    from heaac_tpu.bitstream.reader import BitReader
+    from heaac_tpu_torch import native
+    from heaac_tpu_torch.host import parse_adts_header
     out = sys.argv[1] if len(sys.argv) > 1 else OUT
     os.makedirs(out, exist_ok=True)
 
@@ -427,9 +415,7 @@ def main() -> None:
     if "he34" in kinds:
         for i in range(N):
             data = make_stream(i)
-            h = parse_adts_header(BitReader(data[:7]))
-            p = native.probe_he_stream(data, h.sampling_index, h.sample_rate,
-                                       h.chan_config)
+            p = native.Parser().probe(data, parse_adts_header(data[:7]))
             if p is None or (p["sbr"], p["is34"]) != (1, 1):
                 raise SystemExit(f"stream {i}: probe gave {p}, expected SBR "
                                  "with 34-band PS")
