@@ -174,7 +174,33 @@ Phases (any failure exits non-zero):
      2 LSB of the port's CPU decode, realtime and ms a frame of each run
      beside phase 4's; (c) ``cli.main`` in this
      process, WAV in, ``-b 96k --ms``, to .aac and .m4a, both decoded by
-     ``heaac_tpu_torch.decode`` on the card to the same PCM, above 20 dB.
+     ``heaac_tpu_torch.decode`` on the card to the same PCM, above 20 dB;
+ 13. the plan-record decoders (host-built per-frame plans scanned through
+     the frame graph), each with its default device: (a)
+     codec.batch.StreamBatchDecoder with compact plans over phase 4's 512
+     streams (50 frames) and (b) the same with dense plans (prints the
+     plan bytes resident on the card and the card memory the parse and
+     warm-up took), each after a warm-up, timed in turns with the qwire
+     decode of the same streams (qwire, compact, dense, dense, compact,
+     qwire): K1 exactly 50 at napb 30 in each run, lanes 0-7 within 2 LSB
+     of the port's CPU run and lanes 0-1 of the JAX golden over 16
+     frames (tests/data/plan_golden_jax.npz), all 512 lanes within 2 LSB
+     of the qwire PCM (this phase's and phase 4's); realtime and ms a
+     frame of each run beside phase 4's; (c) PipelinedStreamBatchDecoder
+     over the same streams in two groups of 256 (a warm-up, then a timed
+     run): K1 50 per group, within 1 LSB of (a); (d) StreamBatchDecoder
+     over 512 lanes tiled from the 8 34-band streams, 16 frames: K1
+     exactly 16 at napb 50, lanes 0-1 within 2 LSB of the golden; (e)
+     BatchDecoder(batch=512) on bench stream 0 (warmup, then a timed run:
+     K1 50) and QStreamBatchDecoder over the 8 bench streams, 16 frames
+     (K1 16; within 2 LSB of the golden and of (a)); (f)
+     parallel.sharding.ShardedStreamBatchDecoder over phase 4's streams
+     on ["cuda:0", "cuda:0"], and on cuda:0 + cuda:1 with two cards, 16
+     frames: K1 once a frame per shard (per card), within 1 LSB of (a);
+     (g) heaac_frame_compact on the synthetic compact records of
+     __graft_entry__.entry() rebuilt by the port's compact_plan
+     (tools/make_torch_plan_golden.py graft_compact_inputs) at 64 lanes:
+     K1 once, within 2 LSB of the port's CPU run and of the golden.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -1678,6 +1704,254 @@ def encode_cli(K, card: str) -> None:
                          "the tone is lost")
 
 
+def plan_tool():
+    """tools/make_torch_plan_golden.py as a module: the plan golden's
+    file and kinds, the graft entry's inputs (it imports the JAX package
+    only inside its writer)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_plan_golden", os.path.join(REPO, "tools",
+                                               "make_torch_plan_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lsb(a, b) -> int:
+    return int(np.abs(np.asarray(a).astype(np.int32)
+                      - np.asarray(b).astype(np.int32)).max())
+
+
+def plan_decoders(K, card: str, bench: list, streams: list,
+                  main4: dict) -> dict:
+    """Phase 13 (a)-(c) and (e)-(f): the plan-record decoders over phase
+    4's streams.  Returns K1's launches of each run and the PCM of (a)."""
+    from heaac_tpu_torch.codec.batch import (BatchDecoder,
+                                             PipelinedStreamBatchDecoder,
+                                             QStreamBatchDecoder,
+                                             QwirePipelinedDecoder,
+                                             StreamBatchDecoder)
+    from heaac_tpu_torch.parallel.sharding import ShardedStreamBatchDecoder
+    tool = plan_tool()
+    with np.load(tool.PLAN_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    out = {}
+    # (a), (b): compact and dense plans, timed in turns with the qwire
+    # main path over the same streams
+    decs = {}
+    for name, compact in (("compact", True), ("dense", False)):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        dec = StreamBatchDecoder(streams, compact=compact)
+        build_s = time.perf_counter() - t0
+        if dec.device.type != "cuda":
+            raise SystemExit(f"default device is {dec.device}, not the card")
+        t0 = time.perf_counter()
+        dec.decode()                               # warm-up
+        warm_s = time.perf_counter() - t0
+        nbytes = dec.plan_bytes()
+        held = torch.cuda.memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"StreamBatchDecoder({name}): {LANES} streams parsed and "
+              f"uploaded in {build_s:.3f} s, plans resident on the card "
+              f"{nbytes} bytes ({nbytes / LANES / dec.T:.0f} a frame-lane), "
+              f"card memory {held} bytes held, peak {peak} bytes over the "
+              f"parse and warm-up ({warm_s:.3f} s)", flush=True)
+        decs[name] = (dec, build_s)
+    decs["qwire"] = (QwirePipelinedDecoder(streams, group_streams=LANES), 0.0)
+    walls = {k: [] for k in decs}
+    pcms, k1 = {}, {}
+    for name in ("qwire", "compact", "dense", "dense", "compact", "qwire"):
+        dec = decs[name][0]
+        reset_launches(K)
+        t0 = time.perf_counter()
+        pcm = dec.decode()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+        k1[name] = dict(K.launches)
+        pcms[name] = (pcm[0] if name == "qwire" else pcm).cpu().numpy()
+    T = pcms["compact"].shape[0]
+    for name, (dec, build_s) in decs.items():
+        audio_s = dec.audio_seconds()
+        w = walls[name]
+        print(f"{name}: {LANES} lanes x {T} frames, decode wall "
+              + " / ".join(f"{x:.3f}" for x in w) + " s, realtime "
+              + " / ".join(f"{audio_s / x:.1f}x" for x in w) + ", ms a "
+              "frame " + " / ".join(f"{1e3 * x / T:.1f}" for x in w)
+              + (f"; with the parse and upload ({build_s:.3f} s) "
+                 f"{audio_s / (build_s + min(w)):.1f}x" if build_s else
+                 " (parse and upload inside)")
+              + f"; K1 {k1[name]}", flush=True)
+    print(f"phase 4 in this call: realtime {main4['rt']:.1f}x, "
+          f"{1e3 * main4['wall'] / T:.1f} ms a frame, on {card}", flush=True)
+    for name in decs:
+        if k1[name] != {30: T, 50: 0} or T != 50:
+            raise SystemExit(f"phase 13: {name}: K1 launched {k1[name]} for "
+                             f"{T} frames of 20-band PS")
+    a = pcms["compact"]
+    peak = np.abs(a.astype(np.int32)).max(axis=(0, 2, 3))
+    if not (peak > 0).all():
+        raise SystemExit(f"phase 13 (a): silent lanes "
+                         f"{np.flatnonzero(peak == 0)}")
+    cpu = {name: StreamBatchDecoder(bench, max_frames=GOLDEN_FRAMES,
+                                    compact=name == "compact",
+                                    device="cpu").decode().numpy()
+           for name in ("compact", "dense")}
+    checks = {}
+    for name in ("compact", "dense"):
+        p = pcms[name]
+        checks[name] = (lsb(p[:GOLDEN_FRAMES, :8], cpu[name]),
+                        lsb(p[:GOLDEN_FRAMES, :2],
+                            gold[f"he20_{name}/pcm"][:GOLDEN_FRAMES]),
+                        lsb(p, pcms["qwire"]), lsb(p, main4["pcm"]))
+        print(f"{name}: lanes 0-7 x {GOLDEN_FRAMES} frames vs port CPU max "
+              f"{checks[name][0]} LSB, lanes 0-1 vs JAX golden "
+              f"{checks[name][1]}; all {LANES} lanes vs the qwire decode of "
+              f"this phase {checks[name][2]}, vs phase 4's "
+              f"{checks[name][3]}", flush=True)
+    if max(max(c) for c in checks.values()) > TOL_LSB:
+        raise SystemExit("phase 13 (a)/(b): card output differs from the "
+                         "references")
+    out.update(a=k1["compact"], b=k1["dense"], pcm_a=a)
+    del decs, pcms
+    torch.cuda.empty_cache()
+
+    # (c) packed records, two groups of GROUP_LANES
+    dec = PipelinedStreamBatchDecoder(streams, group_streams=GROUP_LANES)
+    t0 = time.perf_counter()
+    dec.decode()                                   # warm-up
+    warm_s = time.perf_counter() - t0
+    reset_launches(K)
+    t0 = time.perf_counter()
+    outs = dec.decode()
+    wall = time.perf_counter() - t0
+    out["c"] = dict(K.launches)
+    audio_s = dec.audio_seconds()
+    d = max(lsb(o.cpu().numpy(), a[:, g * GROUP_LANES:(g + 1) * GROUP_LANES])
+            for g, o in enumerate(outs))
+    print(f"PipelinedStreamBatchDecoder: {LANES} streams in groups of "
+          f"{GROUP_LANES}, {T} frames, wall {wall:.3f} s (warm-up "
+          f"{warm_s:.3f} s), realtime {audio_s / wall:.1f}x, "
+          f"{1e3 * wall / T:.1f} ms a frame; K1 {out['c']}; vs (a) max {d} "
+          "LSB", flush=True)
+    if out["c"] != {30: 2 * T, 50: 0} or len(outs) != 2 or d > 1:
+        raise SystemExit("phase 13 (c): K1 counts or PCM differ")
+    del dec, outs
+
+    # (e) BatchDecoder over bench stream 0; QStreamBatchDecoder
+    bd = BatchDecoder(bench[0], batch=LANES)
+    t0 = time.perf_counter()
+    bd.warmup()
+    warm_s = time.perf_counter() - t0
+    reset_launches(K)
+    t0 = time.perf_counter()
+    audio_s = bd.run()
+    wall = time.perf_counter() - t0
+    out["e_batch"] = dict(K.launches)
+    print(f"BatchDecoder: {LANES} copies of bench stream 0, {bd.T} frames, "
+          f"wall {wall:.3f} s (warm-up {warm_s:.3f} s), realtime "
+          f"{audio_s / wall:.1f}x, {1e3 * wall / bd.T:.1f} ms a frame; K1 "
+          f"{out['e_batch']}", flush=True)
+    if out["e_batch"] != {30: bd.T, 50: 0}:
+        raise SystemExit("phase 13 (e): BatchDecoder's K1 count")
+    del bd
+    q = QStreamBatchDecoder(bench, max_frames=GOLDEN_FRAMES)
+    reset_launches(K)
+    t0 = time.perf_counter()
+    qp = q.decode().cpu().numpy()
+    wall = time.perf_counter() - t0
+    out["e_qstream"] = dict(K.launches)
+    d = (lsb(qp[:, :2], gold["he20_compact/pcm"][:GOLDEN_FRAMES]),
+         lsb(qp, a[:GOLDEN_FRAMES, :8]))
+    print(f"QStreamBatchDecoder: 8 bench streams x {GOLDEN_FRAMES} frames "
+          f"in {wall:.3f} s; K1 {out['e_qstream']}; lanes 0-1 vs JAX golden "
+          f"max {d[0]} LSB, lanes 0-7 vs (a) {d[1]}", flush=True)
+    if out["e_qstream"] != {30: GOLDEN_FRAMES, 50: 0} or max(d) > TOL_LSB:
+        raise SystemExit("phase 13 (e): QStreamBatchDecoder's K1 count or "
+                         "PCM")
+
+    # (f) sharded: two shards on cuda:0, and across two cards
+    out["f"] = {}
+    pairs = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() >= 2:
+        pairs.append(["cuda:0", "cuda:1"])
+    for devices in pairs:
+        dec = ShardedStreamBatchDecoder(streams, devices=devices,
+                                        max_frames=GOLDEN_FRAMES)
+        reset_launches(K)
+        t0 = time.perf_counter()
+        pcm, calls = k1_calls(dec.decode, key=lambda x: str(x[0].device))
+        wall = time.perf_counter() - t0
+        per_card = {c: calls.count(c) for c in sorted(set(calls))}
+        d = lsb(pcm.numpy(), a[:GOLDEN_FRAMES])
+        print(f"ShardedStreamBatchDecoder on {devices}: {LANES} lanes x "
+              f"{GOLDEN_FRAMES} frames in {wall:.3f} s; K1 {dict(K.launches)}"
+              f", per card {per_card}; vs (a) max {d} LSB", flush=True)
+        names = [str(d) for d in dec.devices]
+        want = {c: GOLDEN_FRAMES * names.count(c) for c in names}
+        if dict(K.launches) != {30: 2 * GOLDEN_FRAMES, 50: 0} or \
+                per_card != want or d > 1:
+            raise SystemExit(f"phase 13 (f) on {devices}: K1 counts or PCM "
+                             "differ")
+        out["f"]["+".join(devices)] = per_card
+        del dec
+    return out
+
+
+def plan_34band(K, files: dict) -> dict:
+    """Phase 13 (d): StreamBatchDecoder over LANES lanes tiled from the 8
+    34-band streams, GOLDEN_FRAMES frames: K1 once a frame at napb 50;
+    lanes 0-1 within TOL_LSB of the JAX golden."""
+    from heaac_tpu_torch.codec.batch import StreamBatchDecoder
+    with np.load(plan_tool().PLAN_GOLDEN) as z:
+        gold = z["he34_compact/pcm"][:GOLDEN_FRAMES]
+    streams = [bytes(bytearray(files["he34"][i % 8])) for i in range(LANES)]
+    dec = StreamBatchDecoder(streams, max_frames=GOLDEN_FRAMES)
+    reset_launches(K)
+    t0 = time.perf_counter()
+    pcm = dec.decode().cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    d = lsb(pcm[:, :2], gold)
+    print(f"StreamBatchDecoder 34-band: {LANES} lanes x {GOLDEN_FRAMES} "
+          f"frames (first run) in {wall:.3f} s; K1 {launches}; lanes 0-1 vs "
+          f"JAX golden max {d} LSB", flush=True)
+    if launches != {30: 0, 50: GOLDEN_FRAMES} or d > TOL_LSB:
+        raise SystemExit("phase 13 (d): K1 counts or PCM differ")
+    return launches
+
+
+def graft_frame(K) -> dict:
+    """Phase 13 (g): heaac_frame_compact on the graft entry's synthetic
+    compact records at 64 lanes, the card against the port's CPU run
+    (within TOL_LSB) and the JAX golden's first lanes."""
+    from heaac_tpu_torch.codec import compact_plan, heaac_graph
+    tool = plan_tool()
+    B = 64
+    inputs = tool.graft_compact_inputs(compact_plan, B)
+    pcms = {}
+    for dev in ("cuda", "cpu"):
+        core, sc, pc = ({k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+                        for d in inputs)
+        reset_launches(K)
+        pcm, _ = heaac_graph.heaac_frame_compact(
+            core, sc, pc, heaac_graph.init_compact_state(B, dev))
+        if "card" not in pcms:
+            launches = dict(K.launches)
+        pcms["card" if "card" not in pcms else "cpu"] = pcm.cpu().numpy()
+    with np.load(tool.PLAN_GOLDEN) as z:
+        gold = z["graft/pcm"]
+    d_cpu = float(np.abs(pcms["card"] - pcms["cpu"]).max())
+    d_gold = float(np.abs(pcms["card"][:len(gold)] - gold).max())
+    print(f"heaac_frame_compact on the graft entry's records, {B} lanes: "
+          f"max |card - CPU| {d_cpu:.4f}, vs JAX golden (lanes "
+          f"0-{len(gold) - 1}) {d_gold:.4f}, peak "
+          f"{np.abs(pcms['card']).max():.1f}; K1 {launches}", flush=True)
+    if max(d_cpu, d_gold) > TOL_LSB or launches != {30: 1, 50: 0}:
+        raise SystemExit("phase 13 (g): graft frame differs or K1 count")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1809,6 +2083,12 @@ def main() -> None:
     encode_cli(K, card)
     phase_done("12 encoder, generators and the encode CLI")
 
+    # ---- 13. the plan-record decoders ---------------------------------------
+    plans = plan_decoders(K, card, bench, streams, main4)
+    plans["d"] = plan_34band(K, files)
+    plans["g"] = graft_frame(K)
+    phase_done("13 plan-record decoders")
+
     row = dict(krows[30])
     row.pop("max_abs_err")
     print(json.dumps({"kernels": [{
@@ -1891,6 +2171,32 @@ def main() -> None:
                                          "streams made by the port's "
                                          "generators x 50 frames, the "
                                          "last timed distinct run",
+        "launches_phase13a_napb30": plans["a"][30],
+        "launches_phase13a_path": "phase 13 (a): StreamBatchDecoder "
+                                  f"(compact), {LANES} lanes x 50 frames",
+        "launches_phase13b_napb30": plans["b"][30],
+        "launches_phase13b_path": "phase 13 (b): StreamBatchDecoder "
+                                  f"(dense), {LANES} lanes x 50 frames",
+        "launches_phase13c_napb30": plans["c"][30],
+        "launches_phase13c_path": "phase 13 (c): PipelinedStreamBatch"
+                                  f"Decoder, {LANES} streams in 2 groups "
+                                  "x 50 frames",
+        "launches_phase13d_napb50": plans["d"][50],
+        "launches_phase13d_path": "phase 13 (d): StreamBatchDecoder, "
+                                  f"{LANES} 34-band lanes x "
+                                  f"{GOLDEN_FRAMES} frames",
+        "launches_phase13e_napb30": [plans["e_batch"][30],
+                                     plans["e_qstream"][30]],
+        "launches_phase13e_path": f"phase 13 (e): BatchDecoder, {LANES} "
+                                  "copies x 50 frames; QStreamBatchDecoder, "
+                                  f"8 streams x {GOLDEN_FRAMES} frames",
+        "launches_phase13f_napb30": plans["f"],
+        "launches_phase13f_path": "phase 13 (f): ShardedStreamBatchDecoder, "
+                                  f"{LANES} lanes x {GOLDEN_FRAMES} frames "
+                                  "in 2 shards, per card",
+        "launches_phase13g_napb30": plans["g"][30],
+        "launches_phase13g_path": "phase 13 (g): heaac_frame_compact on "
+                                  "the graft entry's records, 64 lanes",
         "b1": k1_b1}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

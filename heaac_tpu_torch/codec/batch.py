@@ -6,7 +6,13 @@ Counterparts: ``heaac_tpu/codec/batch.py`` — QwirePipelinedDecoder
 decode_qwire_flip_stream, LcStreamBatchDecoder (with its LC-planner
 branch), decode_batch (with its Python prober), _decode_bucket_retry
 (with its last fallback, the single-stream ``codec/decoder.Decoder`` on
-decode_batch's device), _decode_bucket.
+decode_batch's device), _decode_bucket; and the plan-record decoders
+_pad_plan_frames, _he_plan_defaults, StreamBatchDecoder (compact or
+dense plans), BatchDecoder, _silence_record, PipelinedStreamBatchDecoder
+(packed records) and QStreamBatchDecoder, which decode_batch does not
+use: their plans come from ``planner.parse_stream_plans`` (or the
+native packed sink) and run through ``heaac_graph.scan_decode`` /
+``packed_scan_decode`` (QStreamBatchDecoder: the qwire scan).
 
 QwirePipelinedDecoder (HE-AAC v1/v2): the native parser (``native.py``)
 writes each group of streams into a byte heap + per-frame-lane records
@@ -56,11 +62,14 @@ from ..host import (R_TOKOFF, R_W1, REC_W, count_adts_frames,
                     parse_adts_header, pce_lanes, rows_pair_static,
                     silence_lane, spec_static_args, split_adts_stream)
 from ..utils.metrics import log
-from .heaac_graph import (init_qwire_carry, init_qwire_flip_carry,
-                          lc_scan_decode, qwire_scan_decode,
-                          qwire_scan_decode_flip)
+from . import compact_plan, frame_plan
+from .heaac_graph import (heaac_frame, init_compact_state, init_qwire_carry,
+                          init_qwire_flip_carry, init_state, lc_scan_decode,
+                          packed_scan_decode, qwire_scan_decode,
+                          qwire_scan_decode_flip, scan_decode, to_int16)
 from .decoder import Decoder
-from .planner import LcPlanningDecoder, parse_stream_qwire
+from .planner import (LcPlanningDecoder, parse_stream_plans,
+                      parse_stream_qwire)
 
 
 def _layout_lanes(chan_config: int) -> int:
@@ -772,3 +781,427 @@ def _decode_bucket(key, group, idxs, results, device):
              "audio in %.6f s", key, stats["streams"], stats["frames"],
              stats["audio_s"], stats["wall_s"],
              extra={"bucket_stats": stats})
+
+
+# ---------------------------------------------------------------------------
+# Plan-record decoders: host-built per-frame plans (dense frame_plan or
+# compact / packed compact_plan records) scanned through the frame graph
+# ---------------------------------------------------------------------------
+def _pad_plan_frames(d: dict, defaults: dict, T: int, nl: int) -> dict:
+    """Pad each [T_i, nl, ...] leaf to T frames with the per-key silence
+    default (a shorter stream must not truncate the batch)."""
+    T_i = len(next(iter(d.values())))
+    if T_i >= T:
+        return {k: v[:T] for k, v in d.items()}
+    out = {}
+    for k, v in d.items():
+        dv = np.asarray(defaults[k])
+        pad = np.broadcast_to(dv, (T - T_i, nl) + dv.shape)
+        out[k] = np.concatenate([np.asarray(v), pad], axis=0)
+    return out
+
+
+def _he_plan_defaults(compact: bool = False) -> tuple:
+    """(core, sbr, ps) plan leaves of one silent frame-lane."""
+    core = dict(coeffs=np.zeros(1024, np.float32), ws=np.int32(0),
+                wsp=np.int32(0), kbd=np.int32(0), kbdp=np.int32(0))
+    if compact:
+        return core, compact_plan.zeros_compact(), \
+            compact_plan.zeros_ps_compact()
+    zp = frame_plan._zeros_plan()
+    sbr = {k: np.asarray(getattr(zp, k)) for k in frame_plan.PLAN_FIELDS}
+    return core, sbr, frame_plan.build_ps_plan(None, 64)
+
+
+def _to_device(d: dict, device) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in d.items()}
+
+
+class StreamBatchDecoder:
+    """Whole-stream batched decode with the plans resident on ``device``
+    (the card unless the caller passes ``device="cpu"``).
+
+    Takes B streams (one plan sequence per lane, [T, B * lanes_per_stream,
+    ...]; with ``batch`` the streams repeat to fill B slots), parses them
+    (``planner.parse_stream_plans``: compact records with ``compact``,
+    the default, else the dense plans), uploads once and decodes all T
+    frames of all lanes in one scan (``heaac_graph.scan_decode``).
+    Shorter streams are padded to the longest with silence plans; their
+    own lengths are in ``frame_counts`` (one entry per batch slot).
+    Streams of different PS band or synthesis modes raise
+    NotImplementedError; of different lanes per stream, ValueError."""
+
+    def __init__(self, streams, batch: int | None = None,
+                 asc: bytes | None = None, max_frames: int | None = None,
+                 compact: bool = True, device="cuda"):
+        self.device = resolve(device)
+        if isinstance(streams, (bytes, bytearray)):
+            streams = [bytes(streams)]
+        self.compact = compact
+        per = [parse_stream_plans(s, asc=asc, max_frames=max_frames,
+                                  compact=compact) for s in streams]
+        rate = per[0][3]
+        self.lanes_per_stream = nl = per[0][4]
+        self.is34 = per[0][5]
+        self.ds = per[0][6]
+        if any(p[5] != self.is34 or p[6] != self.ds for p in per):
+            raise NotImplementedError(
+                "mixed PS band / synthesis modes in one batch")
+        if any(p[4] != nl for p in per):
+            raise ValueError("streams of different lanes in one batch: "
+                             f"{sorted({p[4] for p in per})}")
+        T = max(len(p[0]["coeffs"]) for p in per)
+        n = len(per)
+        B = batch or n
+        self.B, self.T, self.sample_rate = B, T, rate
+        self.frame_counts = [len(per[i % n][0]["coeffs"]) for i in range(B)]
+        dflt = _he_plan_defaults(compact)
+        padded = [tuple(_pad_plan_frames(p[idx], dflt[idx], T, nl)
+                        for idx in range(3)) for p in per]
+        self._place(tuple(
+            {k: np.concatenate([padded[i % n][idx][k] for i in range(B)],
+                               axis=1)
+             for k in padded[0][idx]} for idx in range(3)))
+
+    def _place(self, host: tuple) -> None:
+        """Upload the stacked (core, sbr, ps) numpy plans."""
+        self.core, self.sbr, self.ps = (_to_device(d, self.device)
+                                        for d in host)
+
+    def plan_bytes(self) -> int:
+        """Bytes of the plans resident on the device."""
+        return sum(v.numel() * v.element_size()
+                   for d in (self.core, self.sbr, self.ps)
+                   for v in d.values())
+
+    def _init_state(self, lanes: int, device):
+        return (init_compact_state(lanes, device) if self.compact
+                else init_state(lanes, device))
+
+    def decode(self):
+        """pcm [T, B * lanes_per_stream, 2, 2048] int16 on the device
+        ([..., 1024] in downsampled mode), after the device is done."""
+        _, pcm = scan_decode(self.core, self.sbr, self.ps,
+                             self._init_state(self.B * self.lanes_per_stream,
+                                              self.device),
+                             self.is34, self.ds, self.compact)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return pcm
+
+    def audio_seconds(self) -> float:
+        return self.B * self.T * (1024 << (not self.ds)) / self.sample_rate
+
+
+class BatchDecoder:
+    """Decode B copies of one stream on ``device`` (the card unless the
+    caller passes ``device="cpu"``): the stream's dense plans are parsed
+    and uploaded once, and each frame's plan is tiled across the B
+    copies (lanes b * nl onwards) as the frame graph runs.
+
+    Difference from the JAX package: the JAX class tiles the [nl, ...]
+    plan of a frame to [B, nl, ...] and hands that to the frame graph,
+    which fails on it (``TypeError`` on the first frame: the plan leaves
+    gained their lane axis after the class was written); the port tiles
+    to [B * nl, ...], the lane layout of ``StreamBatchDecoder([stream],
+    batch=B, compact=False)``, which it equals."""
+
+    def __init__(self, stream: bytes, batch: int = 512, device="cuda"):
+        self.device = resolve(device)
+        self.B = batch
+        core, sbr, ps, rate, nl, is34, ds = parse_stream_plans(stream)
+        self.sample_rate, self.nl, self.is34, self.ds = rate, nl, is34, ds
+        self.T = len(core["coeffs"])
+        self.core, self.sbr, self.ps = (_to_device(d, self.device)
+                                        for d in (core, sbr, ps))
+        self.state = None
+
+    def _tile(self, d: dict, t: int) -> dict:
+        return {k: v[t].expand(self.B, *v[t].shape).reshape(
+                    self.B * self.nl, *v.shape[2:])
+                for k, v in d.items()}
+
+    def frame_inputs(self, t: int) -> tuple:
+        return (self._tile(self.core, t), self._tile(self.sbr, t),
+                self._tile(self.ps, t))
+
+    def _step(self, t: int, state):
+        return heaac_frame(*self.frame_inputs(t), state, self.is34, self.ds)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self) -> None:
+        """One frame on a fresh state (the first use builds the frame
+        graph's constants); the timed run starts fresh again."""
+        self._step(0, init_state(self.B * self.nl, self.device))
+        self._sync()
+        self.state = init_state(self.B * self.nl, self.device)
+
+    def run(self) -> float:
+        """Decode all frames once, after the device is done; returns the
+        decoded audio seconds."""
+        state = self.state if self.state is not None else init_state(
+            self.B * self.nl, self.device)
+        for t in range(self.T):
+            _, state = self._step(t, state)
+        self._sync()
+        self.state = None
+        return self.B * self.T * (1024 << (not self.ds)) / self.sample_rate
+
+    def decode_all(self):
+        """int16 PCM [B * nl, T * N, 2] on the CPU (for validation)."""
+        state = init_state(self.B * self.nl, self.device)
+        outs = []
+        for t in range(self.T):
+            pcm, state = self._step(t, state)
+            outs.append(to_int16(pcm))
+        return torch.cat(outs, 2).transpose(1, 2).cpu()
+
+
+def _silence_record() -> np.ndarray:
+    """The packed record of a silence lane ([REC_W] float32)."""
+    sc = compact_plan.zeros_compact()
+    pc = compact_plan.zeros_ps_compact()
+    meta = np.zeros((1, 1, 8), np.int32)
+    return compact_plan.pack_records(
+        meta, {k: v[None, None] for k, v in sc.items()},
+        {k: v[None, None] for k, v in pc.items()})[0, 0]
+
+
+class PipelinedStreamBatchDecoder:
+    """End-to-end batched decode over packed plan records where the host
+    parses stream group g+1 while the device decodes group g.
+
+    The native parser writes each stream's lanes straight into the
+    group's whitened packed records (``native.Parser
+    .parse_he_stream_packed_into``) in host staging buffers (pinned when
+    the device is CUDA, two sets); a stream it refuses is parsed by the
+    Python planner (``parse_stream_plans``) and packed
+    (``compact_plan.pack_records``) into the same staging.  Each group is
+    uploaded with non-blocking copies and decoded by
+    ``heaac_graph.packed_scan_decode`` on ``device`` (the card unless
+    the caller passes ``device="cpu"``); the parse of the next group runs
+    on a worker thread (the native call releases the GIL) and waits, before
+    it overwrites a staging set, for that set's last upload (a CUDA
+    event).  The lanes, frames (``max_frames``, else stream 0's), rate
+    and PS band mode come from stream 0; a stream of another band mode
+    or lane count raises ValueError (route mixed inputs through
+    ``decode_batch``), where the JAX class decodes it in the wrong mode
+    or writes its lanes over its neighbours'."""
+
+    def __init__(self, streams, group_streams: int = 256,
+                 max_frames: int | None = None, device="cuda"):
+        self.device = resolve(device)
+        self.streams = [bytes(s) for s in streams]
+        self.hdr = parse_adts_header(self.streams[0][:7])
+        self.G = min(group_streams, len(self.streams))
+        first = parse_stream_plans(self.streams[0], max_frames=max_frames,
+                                   compact=True)
+        self.nl = first[4]
+        self.T = (len(first[0]["coeffs"]) if max_frames is None
+                  else max_frames)
+        self.sample_rate, self.is34, self.ds = first[3], first[5], first[6]
+        self.parser = native.Parser()
+        self.frame_counts: list = []
+        self.L = self.G * self.nl
+        self._mask_c, self._mask_r = compact_plan.whiten_masks(self.T,
+                                                               self.L)
+        self._dev_masks = None
+        # whitened silence record per (frame, lane), for prefill and tails
+        sil = _silence_record().view(np.uint32)
+        self._wh_sil = (self._mask_r ^ sil).view(np.float32)
+        self._bufsets = [None, None]
+        self._uploaded = [None, None]   # CUDA event after each set's upload
+
+    def _buffers(self, bufset: int):
+        if self._bufsets[bufset] is None:
+            pin = self.device.type == "cuda"
+            coeffs_t = torch.empty((self.T, self.L, 1024),
+                                   dtype=torch.float32, pin_memory=pin)
+            rec_t = torch.empty((self.T, self.L, compact_plan.REC_W),
+                                dtype=torch.float32, pin_memory=pin)
+            coeffs, rec = coeffs_t.numpy(), rec_t.numpy()
+            coeffs.view(np.uint32)[:] = self._mask_c   # whitened zeros
+            rec[:] = self._wh_sil
+            self._bufsets[bufset] = (coeffs_t, rec_t, coeffs, rec)
+        return self._bufsets[bufset]
+
+    def _parse_group(self, group: list, bufset: int, n_real: int) -> None:
+        """Parse a group's streams into staging set ``bufset``; the first
+        ``n_real`` count in ``frame_counts`` (the rest pad the last
+        group)."""
+        ev = self._uploaded[bufset]
+        if ev is not None:
+            ev.synchronize()
+            self._uploaded[bufset] = None
+        _, _, coeffs, rec = self._buffers(bufset)
+        native_ok = native.available()
+        h = self.hdr
+
+        def reset_tail(sl, r):
+            """Frames [r:T] of these lanes may hold an earlier group's
+            data: restore (whitened) silence."""
+            if r < self.T:
+                coeffs.view(np.uint32)[r:, sl] = self._mask_c[r:, sl]
+                rec[r:, sl] = self._wh_sil[r:, sl]
+
+        for gi, data in enumerate(group):
+            sl = slice(gi * self.nl, (gi + 1) * self.nl)
+            r = None
+            if native_ok:
+                r = self.parser.parse_he_stream_packed_into(
+                    data, h.sampling_index, h.sample_rate, h.chan_config,
+                    coeffs, rec, gi * self.nl, self.T, self._mask_c,
+                    self._mask_r)
+                if r is not None and r[1]["lanes"] != self.nl:
+                    r = None   # layout mismatch: the Python planner
+            if r is not None:
+                if r[1]["is34"] != self.is34:
+                    raise ValueError(
+                        f"stream {gi} of the group: PS band mode is34="
+                        f"{r[1]['is34']} in a batch of is34={self.is34}; "
+                        "route mixed inputs through decode_batch")
+                nf = r[0]
+            else:
+                nf = self._parse_planner(gi, data, coeffs, rec, sl)
+            if gi < n_real:
+                self.frame_counts.append(nf)
+            reset_tail(sl, nf)
+
+    def _parse_planner(self, gi: int, data: bytes, coeffs, rec, sl) -> int:
+        """The Python planner's parse of stream ``gi`` into the staging
+        lanes ``sl``, whitened -> its frame count."""
+        log.info("pipelined decode: stream %d fell back to the Python "
+                 "planner", gi)
+        core, sbr, ps, rate, nl, is34, _ = parse_stream_plans(
+            data, max_frames=self.T, compact=True)
+        if (nl, is34) != (self.nl, self.is34):
+            raise ValueError(
+                f"stream {gi} of the group: (lanes, is34) {(nl, is34)} "
+                f"differs from the batch's {(self.nl, self.is34)}; route "
+                "mixed inputs through decode_batch")
+        nf = len(core["coeffs"])
+        coeffs.view(np.uint32)[:nf, sl] = (
+            core["coeffs"].view(np.uint32) ^ self._mask_c[:nf, sl])
+        meta = np.zeros((nf, nl, 8), np.int32)
+        for j, k in enumerate(("ws", "wsp", "kbd", "kbdp")):
+            meta[:, :, j] = core[k]
+        packed = compact_plan.pack_records(meta, sbr, ps)
+        rec.view(np.uint32)[:nf, sl] = (
+            packed.view(np.uint32) ^ self._mask_r[:nf, sl])
+        return nf
+
+    def _upload(self, bufset: int) -> tuple:
+        """Staging set -> device tensors (non-blocking from pinned memory
+        on CUDA, with the event the next parse of this set waits on)."""
+        coeffs_t, rec_t, _, _ = self._bufsets[bufset]
+        cuda = self.device.type == "cuda"
+        out = (coeffs_t.to(self.device, non_blocking=cuda),
+               rec_t.to(self.device, non_blocking=cuda))
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._uploaded[bufset] = ev
+        if self._dev_masks is None:
+            self._dev_masks = tuple(
+                torch.from_numpy(m.view(np.int32)).to(self.device)
+                for m in (self._mask_c, self._mask_r))
+        return out
+
+    def decode(self) -> list:
+        """Parse + upload + decode all streams, pipelined by group.
+        Returns one pcm tensor [T, G * nl, 2, 2048] int16 per group, in
+        order, on the device, after the device is done (the last group
+        padded with the first streams)."""
+        n = len(self.streams)
+        groups = []
+        for g0 in range(0, n, self.G):
+            group = self.streams[g0:g0 + self.G]
+            groups.append((group + self.streams[:self.G - len(group)],
+                           len(group)))
+        self.frame_counts = []
+        outs = []
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            group, n_real = groups[0]
+            fut = pool.submit(self._parse_group, group, 0, n_real)
+            for gidx in range(len(groups)):
+                fut.result()
+                coeffs_d, rec_d = self._upload(gidx % 2)
+                if gidx + 1 < len(groups):
+                    group, n_real = groups[gidx + 1]
+                    fut = pool.submit(self._parse_group, group,
+                                      (gidx + 1) % 2, n_real)
+                carry = init_compact_state(self.L, self.device)
+                _, pcm = packed_scan_decode(coeffs_d, rec_d,
+                                            *self._dev_masks, carry,
+                                            self.is34, self.ds)
+                outs.append(pcm)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return outs
+
+    def audio_seconds(self) -> float:
+        spf = 1024 << (not self.ds)
+        return sum(fc * spf / self.sample_rate for fc in self.frame_counts)
+
+
+class QStreamBatchDecoder:
+    """Whole-stream batched decode over the quantized wire format, every
+    stream parsed by the Python planner (``parse_stream_qwire``): the
+    streams' frame-lane payloads go into one byte heap, the records
+    index it (``pack_planner_frames``), and ``decode()`` runs the qwire
+    scan on ``device`` (the card unless the caller passes
+    ``device="cpu"``).  Shorter streams are padded to the longest with
+    silence lanes; with ``batch`` the streams repeat to fill B slots."""
+
+    def __init__(self, streams, batch: int | None = None,
+                 max_frames: int | None = None, device="cuda"):
+        self.device = resolve(device)
+        infos = [dict() for _ in streams]
+        parsed = [parse_stream_qwire(s, max_frames=max_frames,
+                                     info_out=infos[i])
+                  for i, s in enumerate(streams)]
+        rate, nl, is34, ds = parsed[0][1:5]
+        self.sample_rate, self.nl = rate, nl
+        self.out_nl = infos[0]["out_nl"]
+        self.is34, self.ds = is34, ds
+        self.T = max(len(p[0]) for p in parsed)
+        B = batch or len(parsed)
+        self.L = B * nl
+        heap, cur, recs = pack_planner_frames(
+            [parsed[b % len(parsed)][0] for b in range(B)], nl, self.T)
+        S = max(64, int((recs[:, :, R_W1] & 0xFFFF).max()))
+        sa = spec_static_args(recs)
+        self.static = dict(
+            S=-(-S // 64) * 64,
+            rate_idx=parse_adts_header(bytes(streams[0][:7])).sampling_index,
+            NB=sa["NB"], MS=sa["MS"], NS=sa["NS"], SEC=sa["SEC"],
+            rows_pair=rows_pair_static(heap[:cur], recs))
+        self.heap = torch.from_numpy(heap).to(self.device)
+        self.recs = torch.from_numpy(recs).to(self.device)
+        self._frames_total = sum(len(parsed[b % len(parsed)][0])
+                                 for b in range(B))
+        couple = _flatten_couple(
+            [_planner_couple(infos[b % len(parsed)]["couple"])
+             for b in range(B)], nl, self.T)
+        self.couple = None if couple is None else tuple(
+            torch.from_numpy(a).to(self.device) for a in couple)
+
+    def decode(self):
+        """pcm [T, B * nl, 2, 2048] int16 on the device, after the device
+        is done."""
+        carry = init_qwire_carry(self.L, self.device)
+        _, pcm = qwire_scan_decode(self.heap, self.recs, carry, self.is34,
+                                   self.ds, couple=self.couple,
+                                   **self.static)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return pcm
+
+    def audio_seconds(self) -> float:
+        # real (non-padding) frames only
+        return self._frames_total * self.nl \
+            * (1024 << (not self.ds)) / self.sample_rate

@@ -58,14 +58,15 @@ class LaneRef:
     ch: int
 
 
-def _host_couple_and_tns(dec) -> None:
+def _host_couple_and_tns(dec, raise_point3: bool = False) -> None:
     """Dependent channel coupling + TNS in reference order (host side,
-    aacdec.c:1870-1898 stages 0/1), for the decoder and both planners.
+    aacdec.c:1870-1898 stages 0/1), for the decoder and the planners.
     AFTER_IMDCT (point 3) coupling mixes decoded time signals on the
     device: over extra CCE lanes on the qwire and LC paths
     (``planner._point3_edges_sub``, ``_point3_edges``), in the
-    decoder's output; the JAX package's ``raise_point3`` branch serves
-    only its dense-plan planner, which is not ported."""
+    decoder's output.  The plan planner (``planner.PlanningDecoder``)
+    has no such lanes: with ``raise_point3`` a frame holding point-3
+    coupling raises NotImplementedError, as in the JAX package."""
     dec._apply_dependent_coupling_stage(0, before_tns=True)
     for lane in dec.lanes + dec.cce_lanes:
         el = dec.elements[(lane.elem_type, lane.elem_id)]
@@ -75,6 +76,14 @@ def _host_couple_and_tns(dec) -> None:
             syn.apply_tns(cd.coeffs, cd)
             cd.tns = syn.TnsData()
     dec._apply_dependent_coupling_stage(1, before_tns=False)
+    if not raise_point3:
+        return
+    for (etype, _), el in dec.elements.items():
+        if etype == T.TYPE_CCE and el.coup is not None \
+                and el.present_this_frame and el.coup.coupling_point == 3:
+            raise NotImplementedError(
+                "AFTER_IMDCT coupling with SBR needs the single-stream "
+                "decoder (the LC batched path handles it)")
 
 
 def _point3_edges(dec, lane_index_of) -> list:

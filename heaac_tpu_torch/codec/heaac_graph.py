@@ -3,7 +3,10 @@
 Counterpart: ``heaac_tpu/codec/heaac_graph.py`` — HeaacState/init_state,
 _ps_stage, heaac_frame (is34 0, 1 or 2 = both band modes selected per
 lane; downsampled 0, or 1 for the 32-band synthesis of downsampled SBR;
-with the ps_on gate and the PS state freeze), init_qwire_carry,
+with the ps_on gate and the PS state freeze), init_compact_state,
+heaac_frame_compact, the plan-record scans (``heaac_tpu/codec/batch.py``
+_make_scan_decoder, dense or compact: ``scan_decode``;
+_make_packed_scan_decoder: ``packed_scan_decode``), init_qwire_carry,
 heaac_frame_qwire, _qwire_decode_all_coeffs (with the device M/S pair
 butterfly), qwire_scan_decoder, qwire_scan_decoder_couple, and the
 band-mode flip scan (_convert_ps_flip, _flip_scan,
@@ -133,6 +136,69 @@ def heaac_frame(core, plan, ps_plan, state: HeaacState, is34: int = 0,
         ps_ap=keep(ps_new["ap"], state.ps_ap),
         ps_trans=keep(ps_new["trans"], state.ps_trans))
     return torch.stack([pcm0, pcm1], 1), new_state
+
+
+def init_compact_state(B: int, device):
+    """(HeaacState, ps_hist) of B fresh lanes: the carry of the compact
+    plan scans."""
+    return (init_state(B, device), compact_plan.init_ps_hist(B, device))
+
+
+def heaac_frame_compact(core, sc, pc, carry, is34: int = 0,
+                        downsampled: int = 0):
+    """One frame for B lanes from compact plan records (sc, pc dicts of
+    ``codec/compact_plan.py``) -> (pcm, new carry); carry as
+    ``init_compact_state``."""
+    state, ph = carry
+    plan = compact_plan.expand_sbr(sc)
+    ps_plan, ph_new = compact_plan.expand_ps(pc, ph, is34)
+    pcm, new_state = heaac_frame(core, plan, ps_plan, state, is34,
+                                 downsampled)
+    return pcm, (new_state, ph_new)
+
+
+def _pcm_buffer(T: int, B: int, downsampled: int, device):
+    return torch.empty((T, B, 2, 1024 if downsampled else 2048),
+                       dtype=torch.int16, device=device)
+
+
+def scan_decode(core_seq: dict, sbr_seq: dict, ps_seq: dict, carry,
+                is34: int = 0, downsampled: int = 0, compact: bool = True):
+    """_make_scan_decoder's run: step the frame graph over T frames of
+    plan records resident on the device, each leaf [T, B, ...] (the
+    compact records with ``compact``, expanded frame by frame; else the
+    dense plans, with carry an ``init_state``).  -> (carry, pcm int16
+    [T, B, 2, N]), N = 2048, or 1024 with ``downsampled``."""
+    T, B = core_seq["coeffs"].shape[:2]
+    step = heaac_frame_compact if compact else heaac_frame
+    pcm = _pcm_buffer(T, B, downsampled, core_seq["coeffs"].device)
+    for t in range(T):
+        at = lambda d: {k: v[t] for k, v in d.items()}  # noqa: E731
+        out, carry = step(at(core_seq), at(sbr_seq), at(ps_seq), carry,
+                          is34, downsampled)
+        pcm[t] = to_int16(out)
+    return carry, pcm
+
+
+def packed_scan_decode(coeffs_seq, rec_seq, mask_c, mask_r, carry,
+                       is34: int = 0, downsampled: int = 0):
+    """_make_packed_scan_decoder's run: the compact scan over packed
+    records.  coeffs_seq [T, B, 1024] and rec_seq [T, B, REC_W] float32
+    as the native packed sink whitens them, mask_c / mask_r their XOR
+    masks (int32 tensors of the same shapes); each frame is un-whitened
+    and unpacked (``compact_plan.unwhiten``, ``unpack_records``) and
+    decoded by ``heaac_frame_compact``.  -> (carry, pcm int16
+    [T, B, 2, N])."""
+    T, B = rec_seq.shape[:2]
+    pcm = _pcm_buffer(T, B, downsampled, rec_seq.device)
+    for t in range(T):
+        coeffs, rec = compact_plan.unwhiten(coeffs_seq[t], rec_seq[t],
+                                            mask_c[t], mask_r[t])
+        meta, sc, pc = compact_plan.unpack_records(rec)
+        out, carry = heaac_frame_compact(dict(coeffs=coeffs, **meta), sc, pc,
+                                         carry, is34, downsampled)
+        pcm[t] = to_int16(out)
+    return carry, pcm
 
 
 def init_qwire_carry(B: int, device):

@@ -1,11 +1,19 @@
-"""The Python qwire planner: one stream -> per-frame qwire lanes (host).
+"""The Python planners: one stream -> per-frame qwire lanes or plan
+records (host).
 
 Port copy of ``heaac_tpu/codec/batch.py``: _host_couple_and_tns
 (23-43) and _point3_edges (52-86), which live in ``codec/decoder.py``
 (the single-stream decoder runs them too), _point3_edges_sub (87-124),
 _couple_series (125-139), _align_union_layout (140-175),
+PlanningDecoder (176-250), parse_stream_plans (253-348),
 QwirePlanningDecoder (413-655), parse_stream_qwire (657-727) and
-LcPlanningDecoder (1535-1567); names as there.  The planner parses with
+LcPlanningDecoder (1535-1567); names as there.  ``parse_stream_plans``
+gives a stream's plan records (dense ``codec/frame_plan.py`` or compact
+``codec/compact_plan.py``) from the native parser where it takes the
+stream, else from ``PlanningDecoder``; with an AudioSpecificConfig it
+always parses in Python (downsampled SBR).  It raises BitstreamError for
+a buffer without an ADTS frame, where the JAX function meets an
+IndexError.  The planner parses with
 the Python element parser (``codec/decoder.py``) and writes each
 frame-lane with the host writers of ``codec/qwire_host.py``: raw-bits
 spectral blocks where a lane is eligible, raw-f32 tokens otherwise, SBR
@@ -20,12 +28,14 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from .. import tables as T
 from ..bitstream import aac_syntax as syn
 from ..bitstream.reader import BitstreamError
 from ..bitstream.sbr_syntax import SBRContext
-from ..host import silence_lane, split_adts_stream
+from ..host import parse_adts_header, silence_lane, split_adts_stream
 from ..ops.spec_huff import SFB
+from . import compact_plan, frame_plan
 from . import qwire_host as QH
 from .decoder import Decoder, _host_couple_and_tns, _point3_edges
 
@@ -116,6 +126,173 @@ def _align_union_layout(dec) -> None:
     dec.frames_q = new_q
     dec.frames_couple = new_c
     dec.out_nl = len(union) - len(ucce)
+
+
+class PlanningDecoder(Decoder):
+    """Parses a mono or multichannel HE-AAC stream into per-frame plan
+    records instead of decoding it: with ``compact`` each frame-lane is
+    the compact record of ``codec/compact_plan.py`` (the device expands
+    it), else the dense ``codec/frame_plan.py`` tensors.  Parses only
+    (no device); elements parse natively where ``native.available()``,
+    as in the JAX package.  A PS band mode that changes mid-stream
+    raises NotImplementedError, and so does AFTER_IMDCT coupling."""
+
+    def __init__(self, *a, compact: bool = False, **kw):
+        kw.setdefault("use_native", native.available())
+        super().__init__(*a, device=None, **kw)
+        self.compact = compact
+        self.frames_core = []
+        self.frames_sbr = []
+        self.frames_ps = []
+        self.ps_is34 = None   # stream band mode, fixed at first PS frame
+        self.downsampled = 0  # 32-band synthesis (explicit ext==core rate)
+
+    def _spectral_to_sample(self, present):
+        m = self.m4ac
+        _host_couple_and_tns(self, raise_point3=True)
+        cores, sbrs, pss = [], [], []
+        done = set()
+        for lane in self.lanes:
+            key = (lane.elem_type, lane.elem_id)
+            el = self.elements[key]
+            is_ps = (lane.elem_type == T.TYPE_SCE and m.ps == 1)
+            if is_ps and lane.ch == 1:
+                continue  # PS second output shares the SCE lane
+            cd = el.cur[lane.ch]
+            cores.append(dict(
+                coeffs=cd.coeffs.copy(),
+                ws=np.int32(cd.ics.window_sequence),
+                wsp=np.int32(cd.ics.window_sequence_prev),
+                kbd=np.int32(cd.ics.use_kb_window),
+                kbdp=np.int32(cd.ics.use_kb_window_prev)))
+            if m.sbr == 1:
+                if el.sbr is None:
+                    el.sbr = SBRContext()
+                if not el.sbr.sample_rate:
+                    el.sbr.sample_rate = 2 * m.sample_rate
+                if not m.ext_sample_rate:
+                    m.ext_sample_rate = 2 * m.sample_rate
+                self.downsampled = int(m.ext_sample_rate <= m.sample_rate)
+                if el.sbr.ps is not None and el.sbr.ps.start:
+                    cur34 = int(el.sbr.ps.is34bands)
+                    if self.ps_is34 is None:
+                        self.ps_is34 = cur34
+                    elif self.ps_is34 != cur34:
+                        raise NotImplementedError(
+                            "PS band mode changes mid-stream")
+                build = (compact_plan.build_sbr_compact if self.compact
+                         else frame_plan.build_sbr_plan)
+                plan = build(el.sbr, lane.ch, lane.elem_type,
+                             dequant_done=key in done)
+                done.add(key)
+                top = el.sbr.kx[1] + el.sbr.m[1]
+                ps_build = (compact_plan.build_ps_compact if self.compact
+                            else frame_plan.build_ps_plan)
+                ps_plan = ps_build(el.sbr.ps if is_ps else None, top,
+                                   is34=self.ps_is34 or 0)
+            else:
+                plan, ps_plan = _silence_plans(self.compact)
+            sbrs.append(plan)
+            pss.append(ps_plan)
+        self.frames_core.append(cores)
+        self.frames_sbr.append(sbrs)
+        self.frames_ps.append(pss)
+        self.sample_rate = m.sample_rate << (
+            (m.ext_sample_rate > m.sample_rate) if m.sbr == 1 else 0)
+        return np.zeros((0, 1), np.int16)
+
+
+def _silence_plans(compact: bool) -> tuple:
+    """(SBR plan, PS plan) of a lane without SBR or of a corrupt frame."""
+    if compact:
+        return compact_plan.zeros_compact(), compact_plan.zeros_ps_compact()
+    return frame_plan._zeros_plan(), frame_plan.build_ps_plan(None, 64)
+
+
+def parse_stream_plans(data: bytes, asc: bytes | None = None,
+                       max_frames: int | None = None,
+                       compact: bool = False):
+    """One ADTS stream -> (core, sbr, ps, rate, n_lanes, is34,
+    downsampled): per-frame plan dicts whose leaves are [T, n_lanes,
+    ...] (``compact``: the compact records, else the dense plans).  With
+    ``asc`` the configuration comes from the AudioSpecificConfig
+    (explicit SBR signalling, e.g. downsampled mode) and the ADTS headers
+    are framing only.  A frame that raises BitstreamError becomes
+    silence on every lane and is counted, so the frame count stays
+    aligned; a stream with no decodable frame raises BitstreamError."""
+    frames = split_adts_stream(data)
+    if not frames:
+        raise BitstreamError("no ADTS frames in stream")
+    if max_frames is not None:
+        frames = frames[:max_frames]
+    if asc is not None:
+        dec = PlanningDecoder(asc=asc, compact=compact)
+        # strip the per-frame ADTS header: 9 bytes when a CRC is present
+        # (protection_absent=0), 7 otherwise
+        frames = [f[9 - (f[1] & 1) * 2:] for f in frames]
+    else:
+        hdr = parse_adts_header(frames[0][:7])
+        if hdr.chan_config <= 7 and hdr.object_type in (1, 2) \
+                and native.available():
+            # the native whole-stream parse, equal to the Python route
+            # for configs 1-7 (config 0, SSR and PS band-mode flips fall
+            # through)
+            p = native.Parser()
+            parse = (p.parse_he_stream_compact if compact
+                     else p.parse_he_stream)
+            r = parse(data, hdr.sampling_index, hdr.sample_rate,
+                      hdr.chan_config, len(frames))
+            if r is not None:
+                core, sbr, ps, info = r
+                rate = hdr.sample_rate << (1 if info["sbr"] else 0)
+                return (core, sbr, ps, rate, info["lanes"], info["is34"], 0)
+        dec = PlanningDecoder(adts_probe=frames[0][:7], compact=compact)
+    for f in frames:
+        n_before = len(dec.frames_core)
+        try:
+            dec.decode_frame(f)
+        except BitstreamError:
+            # a corrupt frame becomes silence in its lanes instead of
+            # desynchronizing the batch
+            dec.error_count += 1
+            if len(dec.frames_core) == n_before:
+                if dec.frames_core:
+                    nl_ = len(dec.frames_core[0])
+                elif dec.lanes:
+                    # plan lanes: the configured output lanes, with the
+                    # PS second output on its SCE lane
+                    nl_ = sum(1 for ln in dec.lanes
+                              if not (ln.elem_type == T.TYPE_SCE
+                                      and ln.ch == 1))
+                else:
+                    nl_ = 1
+                zc = dict(coeffs=np.zeros(1024, np.float32),
+                          ws=np.int32(0), wsp=np.int32(0),
+                          kbd=np.int32(0), kbdp=np.int32(0))
+                dec.frames_core.append([dict(zc) for _ in range(nl_)])
+                sil = [_silence_plans(compact) for _ in range(nl_)]
+                dec.frames_sbr.append([s for s, _ in sil])
+                dec.frames_ps.append([p for _, p in sil])
+    if not dec.frames_core:
+        raise BitstreamError("no decodable frames in stream")
+    nl = len(dec.frames_core[0])
+
+    def stack_dicts(frames_list):
+        return {k: np.stack([np.stack([np.asarray(lane[k]) for lane in fr])
+                             for fr in frames_list])
+                for k in frames_list[0][0]}
+
+    core = stack_dicts(dec.frames_core)
+    if compact:
+        sbr = stack_dicts(dec.frames_sbr)
+    else:
+        sbr = {k: np.stack([np.stack([np.asarray(getattr(lane, k))
+                                      for lane in fs])
+                            for fs in dec.frames_sbr])
+               for k in frame_plan.PLAN_FIELDS}
+    ps = stack_dicts(dec.frames_ps)
+    return core, sbr, ps, dec.sample_rate, nl, dec.ps_is34 or 0, \
+        dec.downsampled
 
 
 class QwirePlanningDecoder(Decoder):

@@ -1,10 +1,11 @@
 """The decode spread over several cards of one process.
 
 Counterpart of ``heaac_tpu/parallel/sharding.py`` (make_mesh,
-sharded_core_step, ShardedQwireDecoder).  Streams are independent, so
-the parallel axis is the lane axis of a stream group: each card decodes
-a contiguous slice of the group's lanes with the unchanged qwire scan,
-and no card ever needs another card's data.
+sharded_core_step, ShardedStreamBatchDecoder, ShardedQwireDecoder).
+Streams are independent, so the parallel axis is the lane axis: each
+card decodes a contiguous slice of the lanes with the unchanged scan
+(the plan scan for ``ShardedStreamBatchDecoder``, the qwire scan for
+``ShardedQwireDecoder``), and no card ever needs another card's data.
 
 Differences from the JAX package:
   - the cut follows stream boundaries (``shard_bounds``): card k takes
@@ -21,9 +22,10 @@ Differences from the JAX package:
     ``decode()`` call to the last;
   - a device is a ``torch.device`` in a list, not a mesh.  One card may
     stand in the list more than once: it then runs that many shards;
-  - ``ShardedStreamBatchDecoder`` is not ported: its base class, the
-    dense ``StreamBatchDecoder``, is not ported either (no entry point
-    of either package reaches it).
+  - ``ShardedStreamBatchDecoder`` cuts the lanes evenly, as the JAX
+    mesh does (a plan lane never reads another lane, so any cut is
+    exact), and its ``decode()`` returns the lanes of every card joined
+    on the CPU, where the JAX one returns a sharded device array.
 
 One host thread issues the cards one after the other, and the frame
 loop is bound by that issue, so several cards fed by one process decode
@@ -36,9 +38,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..codec.batch import QwirePipelinedDecoder
+from ..codec.batch import QwirePipelinedDecoder, StreamBatchDecoder, \
+    _to_device
 from ..codec.core import consts, core_frame
-from ..codec.heaac_graph import init_qwire_carry, qwire_scan_decode
+from ..codec.heaac_graph import (init_qwire_carry, qwire_scan_decode,
+                                  scan_decode)
 from ..device import resolve
 
 
@@ -87,6 +91,52 @@ def sharded_core_step(devices):
                      for i in range(2))
 
     return step
+
+
+class ShardedStreamBatchDecoder(StreamBatchDecoder):
+    """``StreamBatchDecoder`` with the lanes cut into ``len(devices)``
+    contiguous shards of equal width, one per entry of ``devices``
+    (``make_devices()`` when None: every visible card, so without a card
+    the constructor raises); each shard's plans are uploaded to its
+    device and scanned there (K1 once a frame on each shard), with no
+    collective.  Same contract as ``StreamBatchDecoder``, except that
+    ``decode()`` returns the CPU int16 tensor [T, L, 2, N] of all lanes,
+    after every device is done.  Raises ValueError when the lanes do not
+    divide by the number of devices, as the JAX class does."""
+
+    def __init__(self, streams, batch: int | None = None, devices=None,
+                 asc: bytes | None = None, max_frames: int | None = None,
+                 compact: bool = True):
+        self.devices = [resolve(d) for d in (
+            make_devices() if devices is None else devices)]
+        super().__init__(streams, batch=batch, asc=asc,
+                         max_frames=max_frames, compact=compact,
+                         device=self.devices[0])
+
+    def _place(self, host: tuple) -> None:
+        lanes = self.B * self.lanes_per_stream
+        n = len(self.devices)
+        if lanes % n:
+            raise ValueError(f"{lanes} lanes not divisible by {n} devices")
+        w = lanes // n
+        self.shards = [tuple(
+            _to_device({k: v[:, k0:k0 + w] for k, v in d.items()}, dev)
+            for d in host) for k0, dev in zip(range(0, lanes, w),
+                                              self.devices)]
+        self.core, self.sbr, self.ps = self.shards[0]
+
+    def plan_bytes(self) -> int:
+        return sum(v.numel() * v.element_size() for shard in self.shards
+                   for d in shard for v in d.values())
+
+    def decode(self):
+        pcms = []
+        for dev, (core, sbr, ps) in zip(self.devices, self.shards):
+            lanes = core["coeffs"].shape[1]
+            _, pcm = scan_decode(core, sbr, ps, self._init_state(lanes, dev),
+                                 self.is34, self.ds, self.compact)
+            pcms.append(pcm)
+        return torch.cat([p.cpu() for p in pcms], 1)
 
 
 def _card_couple(couple, lo: int, hi: int, dev):

@@ -7,11 +7,15 @@ import torch
 
 from heaac_tpu_torch import (Decoder, cli, decode, decode_adts, decode_batch,
                              decode_m4a)
-from heaac_tpu_torch.codec.batch import (LcStreamBatchDecoder,
-                                         QwirePipelinedDecoder)
+from heaac_tpu_torch.codec.batch import (BatchDecoder, LcStreamBatchDecoder,
+                                         PipelinedStreamBatchDecoder,
+                                         QStreamBatchDecoder,
+                                         QwirePipelinedDecoder,
+                                         StreamBatchDecoder)
 from heaac_tpu_torch.host import split_adts_stream
 from heaac_tpu_torch.parallel import multihost
 from heaac_tpu_torch.parallel.sharding import (ShardedQwireDecoder,
+                                               ShardedStreamBatchDecoder,
                                                make_devices)
 from test_torch_common import REPO, bench_streams, golden_tool, streams_of
 
@@ -89,3 +93,24 @@ def test_parallel_layer_defaults_to_the_card(tmp_path):
     for run in runs:
         with pytest.raises(RuntimeError, match="is_available"):
             run()
+
+
+def test_plan_decoders_default_to_the_card():
+    """The plan-record decoders with no device take the card (the sharded
+    one every card): without one each constructor raises before it
+    parses."""
+    streams = bench_streams(2)
+    makers = (lambda: StreamBatchDecoder(streams, max_frames=2),
+              lambda: StreamBatchDecoder(streams, max_frames=2,
+                                         compact=False),
+              lambda: BatchDecoder(streams[0], batch=2),
+              lambda: PipelinedStreamBatchDecoder(streams, max_frames=2),
+              lambda: QStreamBatchDecoder(streams, max_frames=2),
+              lambda: ShardedStreamBatchDecoder(streams, max_frames=2))
+    if torch.cuda.is_available():
+        for make in makers[:5]:
+            assert make().device.type == "cuda"
+        return
+    for make in makers:
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()

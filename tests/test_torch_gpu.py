@@ -8,9 +8,13 @@ with a coupling channel (the LC planner and the coupled LC scan) beside
 an HE stream the native probe refuses (the Python prober and profile
 parse), the downsampled-SBR scan, the single-stream Decoder
 (``decode_adts``; K1 at one lane), ``decode_m4a`` on the committed
-.m4a inputs, and the parallel layer: ``ShardedQwireDecoder`` with two
+.m4a inputs, the parallel layer: ``ShardedQwireDecoder`` with two
 shards on one card and, with two cards or more, K1 on ``cuda:1`` while
-``cuda:0`` is current and the sharded decode across both cards.
+``cuda:0`` is current and the sharded decode across both cards; and the
+plan-record decoders: ``StreamBatchDecoder`` (compact and dense) and
+``PipelinedStreamBatchDecoder`` on the card against their CPU runs,
+and ``ShardedStreamBatchDecoder`` with two shards on one card against
+the unsharded decode, K1 once a frame (per shard) at napb 30.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -23,13 +27,16 @@ import torch
 
 from heaac_tpu_torch import Decoder, decode_adts, decode_batch, decode_m4a
 from heaac_tpu_torch.codec import heaac_graph
-from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
+from heaac_tpu_torch.codec.batch import (PipelinedStreamBatchDecoder,
+                                         QwirePipelinedDecoder,
+                                         StreamBatchDecoder,
                                          decode_qwire_flip_stream,
                                          pack_planner_frames)
 from heaac_tpu_torch.codec.planner import parse_stream_qwire
 from heaac_tpu_torch.host import R_W1, spec_static_args, split_adts_stream
 from heaac_tpu_torch.ops import ps_decorrelate as K
-from heaac_tpu_torch.parallel.sharding import ShardedQwireDecoder
+from heaac_tpu_torch.parallel.sharding import (ShardedQwireDecoder,
+                                               ShardedStreamBatchDecoder)
 from test_torch_common import bench_streams, golden_tool, streams_of
 
 pytestmark = pytest.mark.gpu
@@ -290,3 +297,45 @@ def test_sharded_across_two_cards_equals_unsharded(two_cards):
     got, ref, launches = _sharded_vs_unsharded(two_cards)
     assert launches == 2 * 8
     assert torch.equal(got, ref)
+
+
+def _k1_counted(fn):
+    """(fn(), K1's launches at napb 30 and 50 during it)."""
+    before = dict(K.launches)
+    out = fn()
+    return out, {k: K.launches[k] - before[k] for k in K.launches}
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "dense"])
+def test_stream_batch_decoder_on_card_matches_cpu(cuda, compact):
+    streams = bench_streams(8)
+    pcm, k1 = _k1_counted(lambda: StreamBatchDecoder(
+        streams, max_frames=8, compact=compact).decode().cpu())
+    assert k1 == {30: 8, 50: 0}
+    ref = StreamBatchDecoder(streams, max_frames=8, compact=compact,
+                             device="cpu").decode()
+    assert pcm.shape == ref.shape == (8, 8, 2, 2048)
+    assert int((pcm.int() - ref.int()).abs().max()) <= 2
+
+
+def test_pipelined_stream_batch_decoder_on_card_matches_cpu(cuda):
+    """Two groups of four streams: K1 once a frame per group."""
+    streams = bench_streams(8)
+    outs, k1 = _k1_counted(lambda: [o.cpu() for o in
+                                    PipelinedStreamBatchDecoder(
+                                        streams, group_streams=4,
+                                        max_frames=8).decode()])
+    assert k1 == {30: 16, 50: 0}
+    ref = PipelinedStreamBatchDecoder(streams, group_streams=4, max_frames=8,
+                                      device="cpu").decode()
+    for got, want in zip(outs, ref):
+        assert int((got.int() - want.int()).abs().max()) <= 2
+
+
+def test_sharded_stream_batch_decoder_on_one_card(cuda):
+    streams = bench_streams(8)
+    ref = StreamBatchDecoder(streams, max_frames=8, device=cuda).decode()
+    got, k1 = _k1_counted(lambda: ShardedStreamBatchDecoder(
+        streams, devices=[cuda, cuda], max_frames=8).decode())
+    assert k1 == {30: 16, 50: 0}
+    assert int((got.int() - ref.cpu().int()).abs().max()) <= 1

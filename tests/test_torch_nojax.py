@@ -21,7 +21,10 @@ golden; then encodes one case of tests/data/encode_golden_jax.npz with
 the port's AacEncoder and makes the first distinct HE-AAC v2 stream
 with its generators (``splice_sbr_into_lc`` with an SBR and a PS
 writer), equal to the JAX encoder's bytes and the JAX generators'
-sha256 in that golden."""
+sha256 in that golden; then decodes two benchdata streams (4 frames)
+with the plan-record decoders ``StreamBatchDecoder`` (compact and dense
+plans) and ``PipelinedStreamBatchDecoder`` (packed records), against
+tests/data/plan_golden_jax.npz."""
 import os
 import subprocess
 import sys
@@ -125,6 +128,20 @@ adts = tool.encode_case("lc_mono_24k", AacEncoder, egold["pcm_lc_mono_24k"])
 he = heaac_testgen.distinct_stream(tool.bench_cores(REPO), 0)
 print("ENCODE", adts == egold["adts_lc_mono_24k"].tobytes(),
       hashlib.sha256(he).hexdigest() == str(egold["distinct_sha256"][0]))
+from heaac_tpu_torch.codec.batch import (PipelinedStreamBatchDecoder,
+                                         StreamBatchDecoder)
+bench2 = [data, open(REPO + "/benchdata/heaac_bench_stream_1.aac",
+                     "rb").read()]
+pgold = np.load(REPO + "/tests/data/plan_golden_jax.npz")
+plans = [StreamBatchDecoder(bench2, max_frames=4, compact=c,
+                            device="cpu").decode().numpy()
+         for c in (True, False)]
+plans += [PipelinedStreamBatchDecoder(bench2, group_streams=2, max_frames=4,
+                                      device="cpu").decode()[0].numpy()]
+pdiff = max(int(np.abs(p.astype(np.int32) - pgold[k][:4]).max())
+            for p, k in zip(plans, ("he20_compact/pcm", "he20_dense/pcm",
+                                    "pipelined/pcm")))
+print("PLANS", [p.shape for p in plans], pdiff <= 2)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -157,3 +174,6 @@ def test_port_decodes_without_jax():
     assert sharded == "SHARDED (2, 2, 2, 2048) True", sharded
     encode = [x for x in r.stdout.splitlines() if x.startswith("ENCODE")][0]
     assert encode == "ENCODE True True", encode
+    plans = [x for x in r.stdout.splitlines() if x.startswith("PLANS")][0]
+    assert plans == "PLANS [(4, 2, 2, 2048), (4, 2, 2, 2048), " \
+        "(4, 2, 2, 2048)] True", plans

@@ -1,5 +1,8 @@
 """PyTorch port of the parallel layer's sharding
 (``heaac_tpu_torch/parallel/sharding.py``) against the JAX package.
+``ShardedStreamBatchDecoder`` (the plan-record decode with its lanes cut
+evenly over the devices) is held to the unsharded StreamBatchDecoder and
+to tests/data/plan_golden_jax.npz (tools/make_torch_plan_golden.py).
 
 The port cuts each stream group at stream boundaries over a list of
 devices; on the CPU several "devices" are the CPU itself, each running
@@ -18,12 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
+                                         StreamBatchDecoder)
 from heaac_tpu_torch.parallel.sharding import (ShardedQwireDecoder,
+                                               ShardedStreamBatchDecoder,
                                                shard_bounds,
                                                sharded_core_step)
 from test_torch_common import (  # noqa: F401 (autouse fixture)
-    golden_tool, release_jax_memory, streams_of, t)
+    REPO, golden_tool, release_jax_memory, streams_of, t)
 
 TOOL = golden_tool()
 # the first 8 of the golden's TOOL.FRAMES frames (a decode's first frames
@@ -186,3 +191,35 @@ def test_sharded_core_step_matches_jax():
         err = float(np.abs(got.numpy() - want).max())
         assert err <= CORE_TOL, err
         assert 0.2 < np.abs(want).max() < 5
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "dense"])
+def test_sharded_stream_batch_decoder_matches_unsharded(compact):
+    """Bench streams 0-1 twice over (4 lanes) cut 2 and 2 over two CPU
+    "devices": within 1 LSB of the unsharded StreamBatchDecoder and of
+    the JAX StreamBatchDecoder in the plan golden."""
+    streams = streams_of("he20", 2)
+    dec = ShardedStreamBatchDecoder(streams, batch=4, devices=["cpu"] * 2,
+                                    max_frames=FRAMES, compact=compact)
+    assert [s[0]["coeffs"].shape[1] for s in dec.shards] == [2, 2]
+    pcm = dec.decode()
+    assert pcm.dtype == torch.int16 and pcm.device.type == "cpu"
+    ref = StreamBatchDecoder(streams, batch=4, max_frames=FRAMES,
+                             compact=compact, device="cpu").decode()
+    assert pcm.shape == ref.shape == (FRAMES, 4, 2, 2048)
+    pcm = pcm.numpy().astype(np.int32)
+    assert int(np.abs(pcm - ref.numpy()).max()) <= TOL_LSB
+    with np.load(f"{REPO}/tests/data/plan_golden_jax.npz") as z:
+        gold = z["he20_compact/pcm" if compact else "he20_dense/pcm"]
+    for lanes in (slice(0, 2), slice(2, 4)):
+        assert int(np.abs(pcm[:, lanes] - gold[:FRAMES]).max()) <= TOL_LSB
+    assert dec.frame_counts == [FRAMES] * 4
+    assert dec.plan_bytes() == StreamBatchDecoder(
+        streams, batch=4, max_frames=FRAMES, compact=compact,
+        device="cpu").plan_bytes()
+
+
+def test_sharded_stream_batch_decoder_odd_lanes_raise():
+    with pytest.raises(ValueError, match="3 lanes not divisible by 2"):
+        ShardedStreamBatchDecoder(streams_of("he20", 3), devices=["cpu"] * 2,
+                                  max_frames=2)
