@@ -200,7 +200,17 @@ Phases (any failure exits non-zero):
      (g) heaac_frame_compact on the synthetic compact records of
      __graft_entry__.entry() rebuilt by the port's compact_plan
      (tools/make_torch_plan_golden.py graft_compact_inputs) at 64 lanes:
-     K1 once, within 2 LSB of the port's CPU run and of the golden.
+     K1 once, within 2 LSB of the port's CPU run and of the golden;
+ 14. the benchmark entry: ``heaac_tpu_torch.bench.run`` in this process
+     with its default device over 512 distinct HE-AAC v2 streams drawn
+     by bench.py's recipe (SBR inverse filtering 0-3, so held to no
+     reference by LSB: phases 4 and 12 (b) hold the same decoder), 3
+     timed decodes; its JSON line is printed as an earlier line: K1
+     exactly 50 at napb 30 per decode (warm-up, device-only scan, the
+     FLOP count's scan, each timed decode), none at 50, no silent lane,
+     every number of the line finite and not negative, its device this
+     card; its figures beside phase 4's realtime, and the card memory
+     peak.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
@@ -258,6 +268,7 @@ FRONT_M4A = ("he20_0", "he20_explicit_0", "ds_0")
 PROFILE_FRAMES = 2             # phase 10 (b): frames under --profile
 SHARD_TOL_LSB = 1              # phase 11: sharded vs unsharded, golden
 MULTIHOST_TIMEOUT_S = 300      # phase 11 (c): each rank's own limit
+BENCH_REPS = 3                 # phase 14: timed decodes
 SNR_MIN_DB = 20.0              # phase 12: round-trip SNR (tests/test_io_cli.py)
 # phase 12 (b): lanes held to the CPU port: 0-7 and 8 spread over the batch
 DISTINCT_CHECKED = tuple(range(8)) + tuple(64 * k + 8 for k in range(8))
@@ -1952,6 +1963,53 @@ def graft_frame(K) -> dict:
     return launches
 
 
+def bench_entry(K, card: str, main4: dict) -> int:
+    """Phase 14: the port's benchmark entry, ``heaac_tpu_torch.bench.run``
+    in this process with its default device, LANES distinct HE-AAC v2
+    streams (bench.py's recipe: SBR inverse filtering 0-3), BENCH_REPS
+    timed decodes.  Its JSON line is printed by the run.  Checks K1 at
+    napb 30 once per frame of every decode (the warm-up, one device-only
+    scan per group, the FLOP count's scan and the timed decodes) and
+    never at 50, every lane of the last decode non-silent, every number
+    of the line finite and not negative, and its device this card.
+    Prints its figures beside phase 4's realtime and the card memory
+    peak.  Returns K1's napb-30 launches."""
+    import math
+    from heaac_tpu_torch import bench
+    reset_launches(K)
+    line, outs = bench.run(LANES, BENCH_REPS)
+    launches = dict(K.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    T = outs[0].shape[0]
+    ngroups = -(-LANES // line["group"])
+    decodes = 1 + ngroups + 1 + BENCH_REPS
+    print(f"benchmark entry: {LANES} distinct streams x {T} frames, "
+          f"{BENCH_REPS} reps: sustained {line['value']}x, best "
+          f"{line['best_x']}x, median {line['median_x']}x, parse-only "
+          f"{line['parse_only_x']}x, device-only {line['device_only_x']}x, "
+          f"mfu_f32 {line['mfu_f32']}, wire "
+          f"{line['wire_bytes_per_frame_lane']} B a frame-lane; card "
+          f"memory peak {peak_mem} bytes; phase 4 (this call) "
+          f"{main4['rt']:.1f}x; K1 {launches} over {decodes} decodes; on "
+          f"{card}", flush=True)
+    if T != 50 or launches != {30: decodes * T, 50: 0}:
+        raise SystemExit(f"phase 14: K1 launched {launches} for {decodes} "
+                         f"decodes of {T} frames of 20-band PS")
+    peak = outs[0].abs().amax(dim=(0, 2, 3)).cpu().numpy()
+    if not (peak > 0).all():
+        raise SystemExit(f"phase 14: silent lanes {np.flatnonzero(peak == 0)}")
+    numbers = [v for k, v in line.items() if k not in ("metric", "unit",
+                                                        "device")]
+    if not all(isinstance(v, (int, float)) and math.isfinite(v) and v >= 0
+               for v in numbers):
+        raise SystemExit(f"phase 14: a field is missing, negative or not "
+                         f"finite: {line}")
+    if not card.startswith(line["device"]["name"] + ","):
+        raise SystemExit(f"phase 14: the line names {line['device']}, the "
+                         f"card is {card}")
+    return launches[30]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2089,6 +2147,10 @@ def main() -> None:
     plans["g"] = graft_frame(K)
     phase_done("13 plan-record decoders")
 
+    # ---- 14. the benchmark entry --------------------------------------------
+    bench30 = bench_entry(K, card, main4)
+    phase_done("14 benchmark entry")
+
     row = dict(krows[30])
     row.pop("max_abs_err")
     print(json.dumps({"kernels": [{
@@ -2197,6 +2259,12 @@ def main() -> None:
         "launches_phase13g_napb30": plans["g"][30],
         "launches_phase13g_path": "phase 13 (g): heaac_frame_compact on "
                                   "the graft entry's records, 64 lanes",
+        "launches_phase14_napb30": bench30,
+        "launches_phase14_napb30_path": "phase 14: heaac_tpu_torch.bench, "
+                                        f"{LANES} distinct streams x 50 "
+                                        "frames: warm-up, device-only, FLOP "
+                                        f"count and {BENCH_REPS} timed "
+                                        "decodes",
         "b1": k1_b1}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -448,11 +448,16 @@ class QwirePipelinedDecoder:
                 outs.append(self._scan(heap_d, recs_d, sa, couple_d))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        by_orig = [0] * n
+        self._counts_in_input_order()
+        return outs
+
+    def _counts_in_input_order(self) -> None:
+        """frame_counts, appended in parse order (``self.order``, padding
+        copies last), -> one count per input stream, in input order."""
+        by_orig = [0] * len(self.streams)
         for k, i in enumerate(self.order):
             by_orig[i] = self.frame_counts[k]
         self.frame_counts = by_orig
-        return outs
 
     def audio_seconds(self) -> float:
         spf = 1024 << (not self.ds)

@@ -24,7 +24,9 @@ writer), equal to the JAX encoder's bytes and the JAX generators'
 sha256 in that golden; then decodes two benchdata streams (4 frames)
 with the plan-record decoders ``StreamBatchDecoder`` (compact and dense
 plans) and ``PipelinedStreamBatchDecoder`` (packed records), against
-tests/data/plan_golden_jax.npz."""
+tests/data/plan_golden_jax.npz; then imports the benchmark entry
+``heaac_tpu_torch.bench`` and its gate ``heaac_tpu_torch.bench_gate``
+(importing the repo root's ``bench.py`` fails there too)."""
 import os
 import subprocess
 import sys
@@ -35,6 +37,7 @@ CODE = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["heaac_tpu"] = None
+sys.modules["bench"] = None          # the repo root's bench.py
 sys.path.insert(0, REPO)
 import numpy as np
 from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
@@ -142,6 +145,8 @@ pdiff = max(int(np.abs(p.astype(np.int32) - pgold[k][:4]).max())
             for p, k in zip(plans, ("he20_compact/pcm", "he20_dense/pcm",
                                     "pipelined/pcm")))
 print("PLANS", [p.shape for p in plans], pdiff <= 2)
+from heaac_tpu_torch import bench, bench_gate
+print("BENCH", bench.METRIC, bench_gate.GATED)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "heaac_tpu"))
 print("RESULT", pcm.shape, int(np.abs(pcm).max()), int(diff), loaded)
@@ -177,3 +182,7 @@ def test_port_decodes_without_jax():
     plans = [x for x in r.stdout.splitlines() if x.startswith("PLANS")][0]
     assert plans == "PLANS [(4, 2, 2, 2048), (4, 2, 2, 2048), " \
         "(4, 2, 2, 2048)] True", plans
+    bline = [x for x in r.stdout.splitlines() if x.startswith("BENCH")][0]
+    assert bline == ("BENCH sustained_end_to_end_realtime_factor_heaacv2_48k"
+                     "_per_chip ['value', 'parse_only_x', 'device_only_x']"), \
+        bline
