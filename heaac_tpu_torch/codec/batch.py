@@ -62,6 +62,7 @@ from ..host import (R_TOKOFF, R_W1, REC_W, count_adts_frames,
                     parse_adts_header, pce_lanes, rows_pair_static,
                     silence_lane, spec_static_args, split_adts_stream)
 from ..utils.metrics import log
+from ..utils.trace import count, current, span
 from . import compact_plan, frame_plan
 from .heaac_graph import (heaac_frame, init_compact_state, init_qwire_carry,
                           init_qwire_flip_carry, init_state, lc_scan_decode,
@@ -265,6 +266,7 @@ class QwirePipelinedDecoder:
         self._wait_uploads()
         self._cap *= 2
         self._bufsets = [None, None]
+        count("heap.grows")
         log.info("qwire pipelined decode: heap grown to %d KB",
                  self._cap >> 10)
 
@@ -358,6 +360,7 @@ class QwirePipelinedDecoder:
         or None when the heap is full."""
         log.info("qwire pipelined decode: stream %d fell back to the Python "
                  "planner", gi)
+        count("planner.streams")
         errs, pinfo = [], {}
         frames_q, rate, nl, is34, ds = parse_stream_qwire(
             data, max_frames=T, err_out=errs, info_out=pinfo)
@@ -387,21 +390,28 @@ class QwirePipelinedDecoder:
         return dict(S=self.S, rate_idx=self.rate_idx, NB=self.NB, MS=self.MS,
                     NS=self.NS, SEC=self.SEC, rows_pair=self.RP)
 
-    def _parse_with_retry(self, gidx: int):
+    def _parse_with_retry(self, gidx: int, parent=None):
         """Parse group ``gidx`` into staging set gidx % 2 -> (cur, Tg,
-        static decode sizes as of this group, its coupling edges)."""
+        static decode sizes as of this group, its coupling edges).  Its
+        ``group.parse`` span takes ``parent`` (on the worker thread: the
+        span that ``decode`` was called in) and the group's frames and
+        errored frames."""
         idxs = self.order[gidx * self.G:(gidx + 1) * self.G]
         group = [self.streams[i] for i in idxs]
         n_real = len(group)
         if len(group) < self.G:
             group = group + [group[0]] * (self.G - len(group))
         Tg = self.group_T[gidx]
-        for _ in range(6):
-            r = self._parse_group(group, gidx % 2, Tg, n_real)
-            if r is not None:
-                return r[1], Tg, self._static_args(), r[3]
-            self._grow()
-        raise MemoryError("qwire heap kept overflowing")
+        with span("group.parse", parent, group=gidx) as sp:
+            n0, err0 = len(self.frame_counts), self.error_count
+            for _ in range(6):
+                r = self._parse_group(group, gidx % 2, Tg, n_real)
+                if r is not None:
+                    sp.set(frames=sum(self.frame_counts[n0:n0 + n_real]),
+                           errored=self.error_count - err0)
+                    return r[1], Tg, self._static_args(), r[3]
+                self._grow()
+            raise MemoryError("qwire heap kept overflowing")
 
     def _upload(self, bufset: int, cur: int, Tg: int, couple=None):
         """Staging set (and the group's coupling edges) -> device tensors
@@ -437,15 +447,20 @@ class QwirePipelinedDecoder:
         self.frame_counts = []
         self.error_count = 0
         outs = []
+        parent = current()
         with ThreadPoolExecutor(max_workers=1) as pool:
-            fut = pool.submit(self._parse_with_retry, 0)
+            fut = pool.submit(self._parse_with_retry, 0, parent)
             for gidx in range(ngroups):
-                cur, Tg, sa, couple = fut.result()
-                heap_d, recs_d, couple_d = self._upload(gidx % 2, cur, Tg,
-                                                        couple)
+                with span("group.parse_wait", group=gidx):
+                    cur, Tg, sa, couple = fut.result()
+                with span("group.upload", group=gidx):
+                    heap_d, recs_d, couple_d = self._upload(gidx % 2, cur,
+                                                            Tg, couple)
                 if gidx + 1 < ngroups:
-                    fut = pool.submit(self._parse_with_retry, gidx + 1)
-                outs.append(self._scan(heap_d, recs_d, sa, couple_d))
+                    fut = pool.submit(self._parse_with_retry, gidx + 1,
+                                      parent)
+                with span("group.scan", group=gidx, steps=Tg):
+                    outs.append(self._scan(heap_d, recs_d, sa, couple_d))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._counts_in_input_order()
@@ -649,14 +664,30 @@ def decode_batch(streams, device="cuda") -> list:
     decode is decoded by the single-stream ``Decoder`` on ``device``, as
     in the JAX package.  Each bucket logs, at INFO, its key, streams,
     frames, audio and wall seconds (also as the record's
-    ``bucket_stats`` dict, with the scan steps and ``init_s``, the
-    seconds of the decoder's construction: for AAC-LC the whole parse
-    and upload)."""
+    ``bucket_stats`` dict, with the scan steps, the errored frames the
+    decode dropped, and ``init_s``, the seconds of the decoder's
+    construction: for AAC-LC the whole parse and upload).  The call is
+    a ``decode_batch`` span; each bucket a ``bucket`` span whose
+    attributes are that dict (``utils.trace``)."""
     dev = resolve(device)
+    with span("decode_batch", streams=len(streams)):
+        streams = [bytes(s) for s in streams]
+        results: list = [None] * len(streams)
+        with span("probe") as sp:
+            buckets = _bucket_streams(streams, results, dev, sp)
+        for key, idxs in buckets.items():
+            _decode_bucket_retry(key, idxs, streams, results, dev)
+    return results
+
+
+def _bucket_streams(streams: list, results: list, dev, sp) -> dict:
+    """decode_batch's probe of every stream -> {bucket key: stream
+    indices}; a buffer with no sync word gets its empty result here.
+    Counts the streams probed natively and by ``_python_probe`` (on the
+    ``probe`` span ``sp`` and in the counters)."""
     parser = native.Parser()
-    streams = [bytes(s) for s in streams]
-    results: list = [None] * len(streams)
     buckets: dict = {}
+    n_python = 0
     for i, data in enumerate(streams):
         if len(data) < 7 or data[0] != 0xFF or (data[1] & 0xF0) != 0xF0:
             # leading garbage: resync on the first real sync word
@@ -671,15 +702,18 @@ def decode_batch(streams, device="cuda") -> list:
         probe = (parser.probe(data, hdr) if hdr.object_type in (1, 2)
                  else None)
         if probe is None:
+            n_python += 1
             sbr, is34 = _python_probe(data, dev)
         else:
             sbr, is34 = probe["sbr"], probe["is34"]
         key = ("he" if sbr else "lc", hdr.sampling_index, hdr.chan_config,
                int(is34))
         buckets.setdefault(key, []).append(i)
-    for key, idxs in buckets.items():
-        _decode_bucket_retry(key, idxs, streams, results, dev)
-    return results
+    n_native = sum(map(len, buckets.values())) - n_python
+    count("probe.native", n_native)
+    count("probe.python", n_python)
+    sp.set(native=n_native, python=n_python)
+    return buckets
 
 
 def _decode_bucket_retry(key, idxs, streams, results, device,
@@ -694,8 +728,9 @@ def _decode_bucket_retry(key, idxs, streams, results, device,
     stream, frames, dropped frames, audio and wall seconds); an error of
     that decoder propagates."""
     try:
-        _decode_bucket(key, [streams[i] for i in idxs], idxs, results,
-                       device)
+        with span("bucket", key=key) as sp:
+            sp.set(**_decode_bucket(key, [streams[i] for i in idxs], idxs,
+                                    results, device))
         return
     except Exception as exc:  # noqa: BLE001 - bisect, then fall back
         failed = exc
@@ -704,11 +739,13 @@ def _decode_bucket_retry(key, idxs, streams, results, device,
             log.warning("decode_batch: bucket %s (%d streams) failed (%s: "
                         "%s); bisecting to isolate the offender", key,
                         len(idxs), type(failed).__name__, failed)
+        count("bucket.bisections")
         mid = len(idxs) // 2
-        _decode_bucket_retry(key, idxs[:mid], streams, results, device,
-                             depth + 1)
-        _decode_bucket_retry(key, idxs[mid:], streams, results, device,
-                             depth + 1)
+        with span("bucket.retry", key=key, streams=len(idxs)):
+            _decode_bucket_retry(key, idxs[:mid], streams, results, device,
+                                 depth + 1)
+            _decode_bucket_retry(key, idxs[mid:], streams, results, device,
+                                 depth + 1)
         return
     i = idxs[0]
     if isinstance(failed, NotImplementedError) \
@@ -728,8 +765,10 @@ def _decode_bucket_retry(key, idxs, streams, results, device,
 
 def _decode_single(i: int, data: bytes, results, device) -> None:
     t0 = time.perf_counter()
+    count("single.fallbacks")
     dec = Decoder(adts_probe=data[:7], device=device)
-    results[i] = dec.decode(data)
+    with span("single", stream=i):
+        results[i] = dec.decode(data)
     frames = count_adts_frames(data)
     rows = results[i].shape[0]
     stats = dict(stream=i, frames=frames, dropped=dec.error_count,
@@ -743,7 +782,9 @@ def _decode_single(i: int, data: bytes, results, device) -> None:
 
 def _decode_flip(i: int, data: bytes, results, device) -> None:
     t0 = time.perf_counter()
-    results[i] = decode_qwire_flip_stream(data, device=device)
+    count("flip.decodes")
+    with span("flip", stream=i):
+        results[i] = decode_qwire_flip_stream(data, device=device)
     rows = results[i].shape[0]                 # 2048 per frame at 2x rate
     stats = dict(stream=i, frames=rows // 2048,
                  audio_s=rows / (2 * parse_adts_header(data[:7]).sample_rate),
@@ -753,39 +794,50 @@ def _decode_flip(i: int, data: bytes, results, device) -> None:
              stats["audio_s"], stats["wall_s"], extra={"flip_stats": stats})
 
 
-def _decode_bucket(key, group, idxs, results, device):
+def _decode_bucket(key, group, idxs, results, device) -> dict:
+    """Decode one bucket into ``results`` -> its ``bucket_stats`` dict
+    (also logged)."""
     t0 = time.perf_counter()
     if key[0] == "lc":
         bd = LcStreamBatchDecoder(group, device=device)
         init_s = time.perf_counter() - t0        # the whole parse + upload
-        pcm = bd.decode().cpu()                  # [T, B*lane_block, 1024]
-        ch, lb = bd.channels, bd.lane_block
-        for j, i in enumerate(idxs):
-            lanes = pcm[:bd.frame_counts[j], j * lb:j * lb + ch]
-            results[i] = lanes.permute(0, 2, 1).reshape(-1, ch)
+        pcm = bd.decode()                        # [T, B*lane_block, 1024]
+        with span("bucket.pcm"):
+            pcm = pcm.cpu()
+            ch, lb = bd.channels, bd.lane_block
+            for j, i in enumerate(idxs):
+                lanes = pcm[:bd.frame_counts[j], j * lb:j * lb + ch]
+                results[i] = lanes.permute(0, 2, 1).reshape(-1, ch)
+        errored = 0          # the LC decoders drop no frame: an error
+        #                      fails the bucket
     else:
         bd = QwirePipelinedDecoder(group, device=device)
         init_s = time.perf_counter() - t0        # the profile; parse later
-        outs = [o.cpu() for o in bd.decode()]    # [T, L, 2, 2048] each
-        lps = bd.out_nl
-        for j, i in enumerate(idxs):
-            # groups are length-bucketed: map through the sort permutation
-            pcm = outs[bd.group_of[j]]
-            lane0 = bd.slot_of[j] * bd.nl
-            lanes = pcm[:bd.frame_counts[j], lane0:lane0 + lps]
-            if lps == 1:                         # mono core -> stereo
-                results[i] = lanes[:, 0].permute(0, 2, 1).reshape(-1, 2)
-            else:                                # one channel per lane
-                results[i] = torch.stack(
-                    [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1)
+        outs = bd.decode()                       # [T, L, 2, 2048] each
+        with span("bucket.pcm"):
+            outs = [o.cpu() for o in outs]
+            lps = bd.out_nl
+            for j, i in enumerate(idxs):
+                # groups are length-bucketed: map through the sort
+                # permutation
+                pcm = outs[bd.group_of[j]]
+                lane0 = bd.slot_of[j] * bd.nl
+                lanes = pcm[:bd.frame_counts[j], lane0:lane0 + lps]
+                if lps == 1:                     # mono core -> stereo
+                    results[i] = lanes[:, 0].permute(0, 2, 1).reshape(-1, 2)
+                else:                            # one channel per lane
+                    results[i] = torch.stack(
+                        [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1)
+        errored = bd.error_count
     stats = dict(key=key, streams=len(idxs), frames=sum(bd.frame_counts),
                  steps=bd.T if key[0] == "lc" else sum(bd.group_T),
-                 audio_s=bd.audio_seconds(), init_s=init_s,
+                 errored=errored, audio_s=bd.audio_seconds(), init_s=init_s,
                  wall_s=time.perf_counter() - t0)
-    log.info("decode_batch: bucket %s: %d streams, %d frames, %.3f s of "
-             "audio in %.6f s", key, stats["streams"], stats["frames"],
-             stats["audio_s"], stats["wall_s"],
+    log.info("decode_batch: bucket %s: %d streams, %d frames (%d errored), "
+             "%.3f s of audio in %.6f s", key, stats["streams"],
+             stats["frames"], errored, stats["audio_s"], stats["wall_s"],
              extra={"bucket_stats": stats})
+    return stats
 
 
 # ---------------------------------------------------------------------------

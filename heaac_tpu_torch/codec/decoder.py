@@ -45,6 +45,7 @@ from ..device import resolve
 from ..host import split_adts_stream
 from ..ops import ps_single, sbr_single
 from ..utils.metrics import log
+from ..utils.trace import span
 from .core import consts as core_consts
 from .core import core_frame
 
@@ -233,7 +234,19 @@ class Decoder:
     # ------------------------------------------------------------------
     def decode_frame(self, packet: bytes):
         """Decode one ADTS frame / raw_data_block -> int16 [samples, ch], a
-        CPU tensor."""
+        CPU tensor.  A ``decode_frame`` span: ``frame.parse`` (the ADTS
+        header and the element loop), then ``_spectral_to_sample``'s
+        ``frame.prep``, ``frame.issue`` and ``frame.download``."""
+        with span("decode_frame"):
+            with span("frame.parse"):
+                frame_elements = self._parse_frame(packet)
+            out = self._spectral_to_sample(frame_elements)
+            self.locked = True
+            return out
+
+    def _parse_frame(self, packet: bytes) -> list:
+        """The ADTS header and the raw_data_block's elements -> the
+        present elements."""
         br = self.bitreader_cls(packet)
         if br.show(12) == 0xFFF:
             hdr = parse_adts_header(br)
@@ -273,9 +286,7 @@ class Decoder:
                     and el.coup.coupling_point < 3
                     for (et, _), el in self.elements.items())
                 self.use_native = native_saved and not dep
-        out = self._spectral_to_sample(frame_elements)
-        self.locked = True
-        return out
+        return frame_elements
 
     def decode(self, data: bytes):
         """Decode a whole ADTS byte stream -> int16 [samples, channels], a
@@ -529,6 +540,35 @@ class Decoder:
         br.pos = max(br.pos, start + 8 * cnt)
 
     def _spectral_to_sample(self, present):
+        with span("frame.prep"):
+            up, jobs, edges, B, samples = self._prepare()
+        with span("frame.issue"):
+            dev = self.device
+            if self.saved is None or len(self.saved) != B:
+                self.saved = torch.zeros((B, 512), device=dev)
+            c = up["core"]
+            time_out, self.saved = core_frame(
+                c["coeffs"], self.saved, c["ws"], c["wsp"], c["kbd"],
+                c["kbdp"], *core_consts(dev))
+            ret = torch.cat([time_out, torch.zeros_like(time_out)], 1)
+            for j, job in enumerate(jobs):
+                self._apply_sbr(ret, job, up[f"sbr{j}"], up.get(f"ps{j}"))
+            # independent coupling AFTER_IMDCT (aacdec.c:1849-1862)
+            if edges:
+                src = ret
+                ret = ret.clone()
+                for tgt, lane, gain in edges:
+                    ret[tgt] += gain * src[lane]
+            pcm = torch.clamp(torch.round(ret[:len(self.lanes), :samples]),
+                              -32768, 32767).to(torch.int16)
+        with span("frame.download"):
+            return pcm.T.cpu()   # [samples, channels]
+
+    def _prepare(self) -> tuple:
+        """The host half of a frame: dependent coupling and TNS, the core
+        arrays, the SBR and PS plans and the coupling edges, all uploaded
+        in one copy -> (uploaded groups, SBR jobs, edges, lanes, output
+        samples per lane)."""
         m = self.m4ac
         _host_couple_and_tns(self)
         all_lanes = self.lanes + self.cce_lanes
@@ -558,26 +598,8 @@ class Decoder:
             groups[f"sbr{j}"] = job["plan"]
             if job["ps"] is not None:
                 groups[f"ps{j}"] = job["ps"]
-        up = _upload(groups, dev)
-        if self.saved is None or len(self.saved) != B:
-            self.saved = torch.zeros((B, 512), device=dev)
-        c = up["core"]
-        time_out, self.saved = core_frame(c["coeffs"], self.saved, c["ws"],
-                                          c["wsp"], c["kbd"], c["kbdp"],
-                                          *core_consts(dev))
-        ret = torch.cat([time_out, torch.zeros_like(time_out)], 1)
-        for j, job in enumerate(jobs):
-            self._apply_sbr(ret, job, up[f"sbr{j}"], up.get(f"ps{j}"))
-        # independent coupling AFTER_IMDCT (aacdec.c:1849-1862)
-        if edges:
-            src = ret
-            ret = ret.clone()
-            for tgt, lane, gain in edges:
-                ret[tgt] += gain * src[lane]
         self.sample_rate = m.sample_rate << multiplier
-        pcm = torch.clamp(torch.round(ret[:len(self.lanes), :samples]),
-                          -32768, 32767).to(torch.int16)
-        return pcm.T.cpu()   # [samples, channels]
+        return _upload(groups, dev), jobs, edges, B, samples
 
     def _sbr_jobs(self, all_lanes) -> list:
         """The host half of ``_apply_sbr`` for every element that runs SBR

@@ -30,6 +30,7 @@ from . import compact_plan, qwire
 from .core import consts as core_consts
 from .core import core_frame
 from ..host import R_TOKOFF, R_W1, R_W2, R_W3
+from ..utils.trace import span
 
 
 class HeaacState(NamedTuple):
@@ -212,11 +213,15 @@ def heaac_frame_qwire(coeffs, rec, heap, carry, is34: int = 0,
     """One frame from the quantized wire format: rec [B,REC_W] int,
     heap [N] int byte values, coeffs [B,1024] -> (pcm, new carry)."""
     state, ph, qc = carry
-    core_meta, plan, pc, qc2 = qwire.expand_frame(heap, rec, qc, is34,
-                                                  rows_pair)
-    ps_plan, ph2 = compact_plan.expand_ps(pc, ph, is34)
+    with span("expand_frame"):
+        core_meta, plan, pc, qc2 = qwire.expand_frame(heap, rec, qc, is34,
+                                                      rows_pair)
+    with span("expand_ps"):
+        ps_plan, ph2 = compact_plan.expand_ps(pc, ph, is34)
     core = dict(coeffs=coeffs, **core_meta)
-    pcm, state2 = heaac_frame(core, plan, ps_plan, state, is34, downsampled)
+    with span("frame_graph"):
+        pcm, state2 = heaac_frame(core, plan, ps_plan, state, is34,
+                                  downsampled)
     return pcm, (state2, ph2, qc2)
 
 
@@ -306,16 +311,19 @@ def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
     if is34 not in (0, 1):
         raise ValueError(f"is34 must be 0 or 1, not {is34}: a stream whose "
                          "band mode flips goes through qwire_scan_decode_flip")
-    heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S, rate_idx,
-                                              NB, MS, NS, SEC)
+    with span("scan.prologue"):
+        heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S,
+                                                  rate_idx, NB, MS, NS, SEC)
     T, L = rec_seq.shape[:2]
     dtype = torch.int16 if couple is None else torch.float32
     pcm = torch.empty((T, L, 2, 1024 if downsampled else 2048),
                       dtype=dtype, device=heap.device)
     for t in range(T):
-        out, carry = heaac_frame_qwire(coeffs[t], rec_seq[t], heap, carry,
-                                       is34, downsampled, rows_pair)
-        pcm[t] = out if couple is not None else to_int16(out)
+        with span("scan.step"):
+            out, carry = heaac_frame_qwire(coeffs[t], rec_seq[t], heap,
+                                           carry, is34, downsampled,
+                                           rows_pair)
+            pcm[t] = out if couple is not None else to_int16(out)
     if couple is not None:
         pcm = to_int16(couple_mix(pcm, *couple))
     return carry, pcm
@@ -373,24 +381,25 @@ def qwire_scan_decode_flip(heap, rec_seq, carry, downsampled: int, S: int,
     pcm = torch.empty((T, L, 2, 1024 if downsampled else 2048),
                       dtype=dtype, device=heap.device)
     for t in range(T):
-        state, ph, qc, m34_prev = carry
-        core_meta, plan, pc, qc2 = qwire.expand_frame(heap, rec_seq[t], qc,
-                                                      -1, rows_pair)
-        m34 = pc.pop("m34")
-        active = pc["pc_i"][:, compact_plan.PI_ON] > 0
-        to34 = active & (m34 > 0) & (m34_prev == 0)
-        to20 = active & (m34 == 0) & (m34_prev > 0)
-        state2, ph2 = _convert_ps_flip(state, ph, to34, to20)
-        ps0, ph0 = compact_plan.expand_ps(pc, ph2, 0)
-        ps1, ph1 = compact_plan.expand_ps(pc, ph2, 1)
-        ps_plan = {k: _select(m34, ps1[k], ps0[k]) for k in ps0}
-        ph3 = {k: _select(m34, ph1[k], ph0[k]) for k in ph0}
-        ps_plan["m34"] = m34
-        core = dict(coeffs=coeffs[t], **core_meta)
-        out, state3 = heaac_frame(core, plan, ps_plan, state2, 2,
-                                  downsampled)
-        pcm[t] = out if couple is not None else to_int16(out)
-        carry = (state3, ph3, qc2, torch.where(active, m34, m34_prev))
+        with span("scan.step"):
+            state, ph, qc, m34_prev = carry
+            core_meta, plan, pc, qc2 = qwire.expand_frame(
+                heap, rec_seq[t], qc, -1, rows_pair)
+            m34 = pc.pop("m34")
+            active = pc["pc_i"][:, compact_plan.PI_ON] > 0
+            to34 = active & (m34 > 0) & (m34_prev == 0)
+            to20 = active & (m34 == 0) & (m34_prev > 0)
+            state2, ph2 = _convert_ps_flip(state, ph, to34, to20)
+            ps0, ph0 = compact_plan.expand_ps(pc, ph2, 0)
+            ps1, ph1 = compact_plan.expand_ps(pc, ph2, 1)
+            ps_plan = {k: _select(m34, ps1[k], ps0[k]) for k in ps0}
+            ph3 = {k: _select(m34, ph1[k], ph0[k]) for k in ph0}
+            ps_plan["m34"] = m34
+            core = dict(coeffs=coeffs[t], **core_meta)
+            out, state3 = heaac_frame(core, plan, ps_plan, state2, 2,
+                                      downsampled)
+            pcm[t] = out if couple is not None else to_int16(out)
+            carry = (state3, ph3, qc2, torch.where(active, m34, m34_prev))
     if couple is not None:
         pcm = to_int16(couple_mix(pcm, *couple))
     return carry, pcm
@@ -410,10 +419,11 @@ def lc_scan_decode(core_seq: dict, saved, couple=None):
     dtype = torch.int16 if couple is None else torch.float32
     pcm = torch.empty((T, L, 1024), dtype=dtype, device=saved.device)
     for t in range(T):
-        out, saved = core_frame(coeffs[t], saved, core_seq["ws"][t],
-                                core_seq["wsp"][t], core_seq["kbd"][t],
-                                core_seq["kbdp"][t], m2048, m256, bank)
-        pcm[t] = out if couple is not None else to_int16(out)
+        with span("scan.step"):
+            out, saved = core_frame(coeffs[t], saved, core_seq["ws"][t],
+                                    core_seq["wsp"][t], core_seq["kbd"][t],
+                                    core_seq["kbdp"][t], m2048, m256, bank)
+            pcm[t] = out if couple is not None else to_int16(out)
     if couple is not None:
         etgt, esrc, gains = couple
         pcm = to_int16(couple_mix(pcm[:, :, None], etgt, 0, esrc, gains)[

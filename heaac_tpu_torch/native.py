@@ -28,6 +28,7 @@ import numpy as np
 from . import tables as TB
 from .bitstream.reader import BitstreamError
 from .tables import REPO
+from .utils.trace import count
 
 SRC_DIR = os.path.join(REPO, "heaac_tpu", "native")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -109,7 +110,9 @@ def compile_if_stale(so: str, deps, cmd) -> float:
         tmp = f"{so}.{os.getpid()}.tmp"
         subprocess.run([*cmd, "-o", tmp], check=True)
         os.replace(tmp, so)
-        return time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        count("build_s", dt)
+        return dt
 
 
 def build() -> float:

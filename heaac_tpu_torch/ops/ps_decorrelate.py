@@ -36,6 +36,7 @@ import torch
 
 from .. import tables as TB
 from ..native import BUILD_DIR, compile_if_stale
+from ..utils.trace import span
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "ps_decorrelate.cu")
@@ -247,7 +248,8 @@ def decorrelate_seq(power, in_re, in_im, trans, ap, ag, qf):
     tensors (raises on anything the kernel does not take)."""
     dev = power.device
     if dev.type == "cpu":
-        return decorrelate_plain(power, in_re, in_im, trans, ap, ag, qf)
+        with span("k1", napb=in_re.shape[1]):
+            return decorrelate_plain(power, in_re, in_im, trans, ap, ag, qf)
     if dev.type != "cuda":
         raise ValueError(f"decorrelate_seq: unsupported device {dev}")
     B, napb = power.shape[0], in_re.shape[1]
@@ -266,7 +268,7 @@ def decorrelate_seq(power, in_re, in_im, trans, ap, ag, qf):
     geo = geometry(napb)
     # the launcher raises the shared-memory limit on, and launches from,
     # the CUDA runtime's current device: make it the tensors' card
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("k1", napb=napb):
         rc = _lib().ps_decorrelate_launch(
             power.data_ptr(), in_re.data_ptr(), in_im.data_ptr(),
             trans.data_ptr(), ap.data_ptr(), ag.data_ptr(), qf.data_ptr(),

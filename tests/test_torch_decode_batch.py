@@ -19,6 +19,7 @@ from heaac_tpu.bitstream.adts import split_adts_stream as jax_split
 from heaac_tpu_torch import decode_batch
 from heaac_tpu_torch.codec import batch
 from heaac_tpu_torch.host import split_adts_stream
+from heaac_tpu_torch.utils import trace
 from test_torch_common import (  # noqa: F401 (autouse fixture)
     golden_tool, release_jax_memory, streams_of)
 
@@ -77,7 +78,17 @@ def test_decode_batch_names_the_stream_it_cannot_take(caplog):
     streams = [b"no sync word here", _head(streams_of("he20", 1)[0], 4),
                _head(tool.corrupted("he20_f0_0"), 4)]
     caplog.set_level(logging.INFO, logger="heaac_tpu_torch")
-    outs = decode_batch(streams, device="cpu")
+    with trace.recording() as rec:
+        outs = decode_batch(streams, device="cpu")
+    probe = next(s for s in rec.spans if s.name == "probe")
+    assert probe.attrs == dict(native=1, python=1)
+    assert [s.attrs["stream"] for s in rec.spans if s.name == "single"] \
+        == [2]
+    assert sorted((s.attrs["key"][0], s.attrs.get("error"))
+                  for s in rec.spans if s.name == "bucket") == [
+        ("he", None), ("lc", "BitstreamError")]
+    assert [rec.counters[k] for k in ("probe.native", "probe.python",
+                                      "single.fallbacks")] == [1, 1, 1]
     assert [m.split(":")[1] for m in _fallbacks(caplog)] == [" stream 2 fell "
                                                              "back to the "
                                                              "single-stream "
@@ -110,7 +121,15 @@ def test_failed_flip_decode_names_the_stream(monkeypatch, caplog):
     streams = [_head(streams_of("he20", 1)[0], 4),
                _head(streams_of("flip", 1)[0], frames)]
     caplog.set_level(logging.INFO, logger="heaac_tpu_torch")
-    outs = decode_batch(streams, device="cpu")
+    with trace.recording() as rec:
+        outs = decode_batch(streams, device="cpu")
+    by_id = {s.id: s for s in rec.spans}
+    assert [(s.name, by_id[s.parent].name, s.attrs.get("error"))
+            for s in rec.spans if s.name in ("flip", "single")] == [
+        ("flip", "bucket.retry", "RuntimeError"),
+        ("single", "bucket.retry", None)]
+    assert [rec.counters[k] for k in ("bucket.bisections", "flip.decodes",
+                                      "single.fallbacks")] == [1, 1, 1]
     msgs = [r.getMessage() for r in caplog.records]
     assert "decode_batch: flip-scan decode of stream 1 failed (RuntimeError: " \
         "flip decode failed); using the single-stream decoder" in msgs

@@ -1,0 +1,144 @@
+"""The port's span and counter recorder (``heaac_tpu_torch.utils.trace``)
+on the CPU: nothing is recorded outside ``recording()``; inside it, a
+``decode_batch`` call gives the span tree decode_batch -> probe / bucket
+-> group.parse (on the parse worker) / parse_wait / upload / scan ->
+scan.prologue / scan.step -> expand_frame / expand_ps / frame_graph ->
+k1, with the bucket's attributes equal to its ``bucket_stats`` record;
+``decode_frame`` gives its four stages; spans land on the profiler's
+clock."""
+import collections
+import functools
+import logging
+
+import numpy as np
+import torch
+from torch.autograd.profiler import profile, record_function
+
+from heaac_tpu_torch import Decoder, decode_batch
+from heaac_tpu_torch.codec import batch
+from heaac_tpu_torch.host import split_adts_stream
+from heaac_tpu_torch.utils import trace
+from test_torch_common import streams_of
+
+FRAMES = 3
+
+
+def _heads(n: int) -> list:
+    return [b"".join(split_adts_stream(d)[:FRAMES])
+            for d in streams_of("he20", n)]
+
+
+def _by_id(rec) -> dict:
+    return {s.id: s for s in rec.spans}
+
+
+def _parent_name(s, by_id) -> str | None:
+    return None if s.parent is None else by_id[s.parent].name
+
+
+def test_off_records_nothing(monkeypatch):
+    """Outside ``recording()`` every span is the shared no-op and no span
+    object is made; counters still count."""
+    assert trace.span("x", a=1) is trace.NO_SPAN
+    assert trace.current() is None
+    with trace.span("x") as sp:
+        sp.set(b=2)
+
+    def no_span(*a, **kw):
+        raise AssertionError("a span was made while nothing records")
+
+    monkeypatch.setattr(trace, "Span", no_span)
+    before = trace.snapshot().get("probe.native", 0)
+    decode_batch(_heads(1), device="cpu")
+    assert trace.snapshot()["probe.native"] == before + 1
+
+
+def test_decode_batch_span_tree(monkeypatch, caplog):
+    """Two groups of two streams: one group.parse per group on the
+    worker thread under the bucket, one scan.step per frame step, every
+    span inside its parent and in the call's one call id."""
+    monkeypatch.setattr(batch, "QwirePipelinedDecoder", functools.partial(
+        batch.QwirePipelinedDecoder, group_streams=2))
+    caplog.set_level(logging.INFO, logger="heaac_tpu_torch")
+    with trace.recording() as rec:
+        decode_batch(_heads(4), device="cpu")
+    by_id = _by_id(rec)
+    tree = collections.Counter((s.name, _parent_name(s, by_id))
+                               for s in rec.spans)
+    groups, steps = 2, 2 * FRAMES
+    assert tree == {
+        ("decode_batch", None): 1, ("probe", "decode_batch"): 1,
+        ("bucket", "decode_batch"): 1, ("bucket.pcm", "bucket"): 1,
+        ("group.parse", "bucket"): groups,
+        ("group.parse_wait", "bucket"): groups,
+        ("group.upload", "bucket"): groups, ("group.scan", "bucket"): groups,
+        ("scan.prologue", "group.scan"): groups,
+        ("scan.step", "group.scan"): steps,
+        ("expand_frame", "scan.step"): steps,
+        ("expand_ps", "scan.step"): steps,
+        ("frame_graph", "scan.step"): steps, ("k1", "frame_graph"): steps}
+    root = next(s for s in rec.spans if s.name == "decode_batch")
+    assert {s.call for s in rec.spans} == {root.call}
+    parse = [s for s in rec.spans if s.name == "group.parse"]
+    assert {s.thread for s in parse} != {root.thread}
+    assert sorted(s.attrs["group"] for s in parse) == [0, 1]
+    assert [s.attrs["frames"] for s in parse] == [2 * FRAMES] * groups
+    for s in rec.spans:
+        assert s.start_ns <= s.end_ns
+        if s.parent is not None:
+            up = by_id[s.parent]
+            assert up.start_ns <= s.start_ns and s.end_ns <= up.end_ns, \
+                s.name
+    probe = next(s for s in rec.spans if s.name == "probe")
+    assert probe.attrs == dict(native=4, python=0)
+    assert rec.counters["probe.native"] == 4
+    stats = [r.bucket_stats for r in caplog.records
+             if hasattr(r, "bucket_stats")]
+    bucket = next(s for s in rec.spans if s.name == "bucket")
+    assert [bucket.attrs] == stats
+    assert stats[0]["errored"] == 0 and stats[0]["steps"] == steps
+
+
+def test_decode_frame_stages():
+    """Two frames of the single-stream Decoder: each a call of its own
+    with frame.parse, prep, issue and download in that order."""
+    data = _heads(1)[0]
+    dec = Decoder(adts_probe=data[:7], device="cpu")
+    with trace.recording() as rec:
+        for f in split_adts_stream(data)[:2]:
+            dec.decode_frame(f)
+    by_id = _by_id(rec)
+    frames = [s for s in rec.spans if s.name == "decode_frame"]
+    assert len(frames) == 2 and len({s.call for s in frames}) == 2
+    for fr in frames:
+        kids = sorted((s for s in rec.spans if s.parent == fr.id),
+                      key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == ["frame.parse", "frame.prep",
+                                          "frame.issue", "frame.download"]
+    assert all(_parent_name(s, by_id) == "frame.issue"
+               for s in rec.spans if s.name == "k1")
+
+
+def test_spans_on_the_profiler_clock():
+    """``to_trace_ns`` moves perf_counter stamps by the offset, drifting
+    linearly between the recording's two clock readings; a live span
+    holds the profiler record made inside it once mapped."""
+    rec = trace.Recording()
+    rec.clock0, rec.clock1 = (1_000, 5_000), (2_000, 6_010)
+    assert rec.drift_ns == 10
+    assert rec.to_trace_ns(1_000) == 5_000
+    assert rec.to_trace_ns(1_500) == 5_505
+    assert list(rec.to_trace_ns(np.array([1_000, 2_000], np.int64))) == \
+        [5_000, 6_010]
+    with profile(use_kineto=True) as prof, trace.recording() as live:
+        with trace.span("outer"):
+            with record_function("inner"):
+                torch.ones(4).sum()
+    (outer,) = live.spans
+    (inner,) = [e for e in prof.kineto_results.events()
+                if e.name() == "inner"]
+    t0, t1 = (live.to_trace_ns(t) for t in (outer.start_ns, outer.end_ns))
+    slack = 200_000                      # two clock reads, in ns
+    assert t0 - slack <= inner.start_ns()
+    assert inner.start_ns() + inner.duration_ns() <= t1 + slack
+    assert abs(live.drift_ns) < slack
