@@ -1182,6 +1182,31 @@ def k1_calls(fn, key=lambda a: (a[0].shape[0], a[1].shape[1])) -> tuple:
     return out, calls
 
 
+def k1_per_card(fn) -> tuple:
+    """(fn()'s result, K1's launches per card while fn ran): the calls of
+    K1's wrapper through ``ops/ps.py`` outside a CUDA-graph capture, by
+    their tensors' card, plus the launches each replay of a captured
+    qwire step holds (``codec/step_graph.py``), by the graph's card."""
+    from heaac_tpu_torch.codec import step_graph
+    real = step_graph._StepGraph.replay
+    replays = []
+
+    def spy(self, *a):
+        replays.append((str(self.heap.device), sum(self.k1.values())))
+        return real(self, *a)
+
+    step_graph._StepGraph.replay = spy
+    try:
+        out, calls = k1_calls(fn, key=lambda a: (
+            str(a[0].device), torch.cuda.is_current_stream_capturing()))
+    finally:
+        step_graph._StepGraph.replay = real
+    per_card: dict = {}
+    for c, n in [(c, 1) for c, capturing in calls if not capturing] + replays:
+        per_card[c] = per_card.get(c, 0) + n
+    return out, dict(sorted(per_card.items()))
+
+
 def front_m4a_decodes(K, card: str) -> dict:
     """Phase 10 (a): ``heaac_tpu_torch.decode`` with its default device
     on FRONT_M4A, each built here by the port's muxer from the whole
@@ -1367,7 +1392,7 @@ def sharded_full_width(K, card: str, streams: list, main: dict,
                        devices: list) -> dict:
     """Phase 11 (a), and (d) on two cards: ShardedQwireDecoder over
     phase 4's streams as one group on ``devices``; K1 exactly once per
-    frame per shard at napb 30 (counted per card through ``ops/ps.py``),
+    frame per shard at napb 30 (counted per card: ``k1_per_card``),
     PCM within SHARD_TOL_LSB of phase 4's.  Returns K1's launches, per
     card and the realtime factor."""
     from heaac_tpu_torch.parallel.sharding import ShardedQwireDecoder
@@ -1377,10 +1402,9 @@ def sharded_full_width(K, card: str, streams: list, main: dict,
     warm_s = time.perf_counter() - t0
     reset_launches(K)
     t0 = time.perf_counter()
-    outs, calls = k1_calls(dec.decode, key=lambda a: str(a[0].device))
+    outs, per_card = k1_per_card(dec.decode)
     wall = time.perf_counter() - t0
     launches = dict(K.launches)
-    per_card = {c: calls.count(c) for c in sorted(set(calls))}
     pcm = outs[0].numpy()
     T = pcm.shape[0]
     audio_s = dec.audio_seconds()

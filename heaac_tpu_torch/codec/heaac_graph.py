@@ -16,7 +16,8 @@ or True).  One frame for B lanes: core IMDCT / overlap-add -> QMF
 analysis -> SBR HF reconstruction -> parametric stereo -> QMF synthesis.
 The scans are Python loops over T frames that round to int16 inside the
 loop, except with AFTER_IMDCT coupling, which mixes the float output of
-all frames first.
+all frames first; on a CUDA device the qwire scan replays its frame step
+as a CUDA graph (``codec/step_graph.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from ..ops import ps, sbr, spec_huff
 from ..ops.qmf import qmf_analysis, qmf_synthesis, qmf_synthesis_ds
-from . import compact_plan, qwire
+from . import compact_plan, qwire, step_graph
 from .core import consts as core_consts
 from .core import core_frame
 from ..host import R_TOKOFF, R_W1, R_W2, R_W3
@@ -209,13 +210,15 @@ def init_qwire_carry(B: int, device):
 
 
 def heaac_frame_qwire(coeffs, rec, heap, carry, is34: int = 0,
-                      downsampled: int = 0, rows_pair: int = 0):
+                      downsampled: int = 0, rows_pair: int = 0,
+                      heap_hi=None):
     """One frame from the quantized wire format: rec [B,REC_W] int,
-    heap [N] int byte values, coeffs [B,1024] -> (pcm, new carry)."""
+    heap [N] int byte values, coeffs [B,1024] -> (pcm, new carry);
+    ``heap_hi`` as ``qwire.expand_frame`` takes it."""
     state, ph, qc = carry
     with span("expand_frame"):
         core_meta, plan, pc, qc2 = qwire.expand_frame(heap, rec, qc, is34,
-                                                      rows_pair)
+                                                      rows_pair, heap_hi)
     with span("expand_ps"):
         ps_plan, ph2 = compact_plan.expand_ps(pc, ph, is34)
     core = dict(coeffs=coeffs, **core_meta)
@@ -307,24 +310,33 @@ def qwire_scan_decode(heap, rec_seq, carry, is34: int, downsampled: int,
     (the 32-band synthesis).  ``couple`` = (etgt, etch, esrc, gains)
     tensors on the device (qwire_scan_decoder_couple): the float output
     of every frame is kept, the AFTER_IMDCT coupling mixed in
-    (``couple_mix``), and only then rounded."""
+    (``couple_mix``), and only then rounded.  On a CUDA device the
+    frame step is a CUDA graph, captured once per shape and replayed
+    (``step_graph.run_steps``)."""
     if is34 not in (0, 1):
         raise ValueError(f"is34 must be 0 or 1, not {is34}: a stream whose "
                          "band mode flips goes through qwire_scan_decode_flip")
     with span("scan.prologue"):
         heap, rec_seq, coeffs = decode_all_coeffs(heap, rec_seq, S,
                                                   rate_idx, NB, MS, NS, SEC)
+        # each step's [L, 1024] rows contiguous, as in the graph's input
+        # buffer: cuBLAS can take another kernel for strided rows, and
+        # round the IMDCT products otherwise
+        coeffs = coeffs.contiguous()
     T, L = rec_seq.shape[:2]
-    dtype = torch.int16 if couple is None else torch.float32
+    keep_float = couple is not None
     pcm = torch.empty((T, L, 2, 1024 if downsampled else 2048),
-                      dtype=dtype, device=heap.device)
-    for t in range(T):
-        with span("scan.step"):
-            out, carry = heaac_frame_qwire(coeffs[t], rec_seq[t], heap,
-                                           carry, is34, downsampled,
-                                           rows_pair)
-            pcm[t] = out if couple is not None else to_int16(out)
-    if couple is not None:
+                      dtype=torch.float32 if keep_float else torch.int16,
+                      device=heap.device)
+
+    def step(c, rec, heap, carry, heap_hi=None):
+        out, carry = heaac_frame_qwire(c, rec, heap, carry, is34,
+                                       downsampled, rows_pair, heap_hi)
+        return (out if keep_float else to_int16(out)), carry
+
+    carry = step_graph.run_steps(step, coeffs, rec_seq, heap, carry, pcm,
+                                 (is34, downsampled, rows_pair, keep_float))
+    if keep_float:
         pcm = to_int16(couple_mix(pcm, *couple))
     return carry, pcm
 

@@ -160,19 +160,21 @@ def init_qcarry(B: int, device) -> dict:
         sbr_ec=z(5, M), sbr_qc=z(2, NB_Q), sbr_pc=z(5, M), sbr_qpc=z(2, NB_Q))
 
 
-def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
+def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0,
+                 heap_hi=None):
     """rec [B, REC_W] int + heap + carry -> (core_meta, sbr dense plan,
     ps codes {pc_i, pc_b}, new carry) for one frame (expand_frame_jax).
     With is34 = -1 each lane's PS band mode is this frame's side bit 6:
     the parameters are remapped to it, and the ps codes also hold it as
-    ``m34`` [B] (0 where PS is off)."""
+    ``m34`` [B] (0 where PS is off).  ``heap_hi``: the heap's last index
+    as a 0-d device tensor, where heap is a longer buffer that holds it
+    (a CUDA graph's); None: heap.shape[0] - 1."""
     if is34 not in (-1, 0, 1):
         raise ValueError(f"is34 must be -1, 0 or 1, not {is34}")
     dev = heap.device
     Lt = _luts(dev)
     f32 = torch.float32
     B = rec.shape[0]
-    N = heap.shape[0]
     ar = lambda n: torch.arange(n, device=dev)[None, :]  # noqa: E731
     gat = lambda a, idx: torch.gather(a, 1, idx)  # noqa: E731
     tok_off = rec[:, R_TOKOFF]
@@ -182,7 +184,11 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0):
     hdr_off = side_off + (w2 & 0xFFFF)
     has_hdr = ((w2 >> 16) & 0xFF) > 0
 
-    gw = lambda off, n: heap[(off[:, None] + ar(n)).clamp(0, N - 1)]  # noqa
+    hi = heap.shape[0] - 1 if heap_hi is None else heap_hi
+    # two clamps: a Scalar bound beside a Tensor one is uploaded, which
+    # a CUDA graph cannot capture
+    gw = lambda off, n: heap[(off[:, None] + ar(n)).clamp(  # noqa: E731
+        min=0).clamp(max=hi)]
     side = gw(side_off, SIDE_MAX)
     hdr = torch.where(has_hdr[:, None], gw(hdr_off, HDR_MAX), carry["hdr"])
     sb = lambda j: side[:, j]  # noqa: E731

@@ -24,8 +24,13 @@ RW = 288
 
 @functools.cache
 def _luts(device: torch.device):
+    """(flat, bases, maxlens, symbol offsets, iid table by 2 * dt + iq)
+    on ``device``, made once: a frame step uploads nothing, so it can be
+    captured in a CUDA graph."""
     return tuple(torch.from_numpy(a.astype("int64")).to(device)
-                 for a in TB.ps_huff_luts())
+                 for a in TB.ps_huff_luts()) + (torch.tensor(
+                     [IID_DF0, IID_DF1, IID_DT0, IID_DT1], dtype=torch.long,
+                     device=device),)
 
 
 def init_ps_carry(B: int, device) -> dict:
@@ -60,8 +65,7 @@ def decode_ps_region(region, start_off, rbits, enable_iid, iq, nr_iid,
     iid_rows = []
     lim = 7 + 8 * iq
     prev_row = carry["iid_last"]
-    iid_tabsel = torch.tensor([IID_DF0, IID_DF1, IID_DT0, IID_DT1],
-                              dtype=torch.long, device=dev)
+    iid_tabsel = L[4]
     for e in range(4):
         act = (enable_iid > 0) & (e < ne_pre)
         dt, pos = one_bit(pos, act)

@@ -14,7 +14,9 @@ shards on one card and, with two cards or more, K1 on ``cuda:1`` while
 plan-record decoders: ``StreamBatchDecoder`` (compact and dense) and
 ``PipelinedStreamBatchDecoder`` on the card against their CPU runs,
 and ``ShardedStreamBatchDecoder`` with two shards on one card against
-the unsharded decode, K1 once a frame (per shard) at napb 30.
+the unsharded decode, K1 once a frame (per shard) at napb 30; the qwire
+scan's CUDA-graph replay of its frame step against the same frames
+stepped eagerly, chained scans, and the graph cache's second call.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -26,7 +28,7 @@ import pytest
 import torch
 
 from heaac_tpu_torch import Decoder, decode_adts, decode_batch, decode_m4a
-from heaac_tpu_torch.codec import heaac_graph
+from heaac_tpu_torch.codec import heaac_graph, step_graph
 from heaac_tpu_torch.codec.batch import (PipelinedStreamBatchDecoder,
                                          QwirePipelinedDecoder,
                                          StreamBatchDecoder,
@@ -37,6 +39,7 @@ from heaac_tpu_torch.host import R_W1, spec_static_args, split_adts_stream
 from heaac_tpu_torch.ops import ps_decorrelate as K
 from heaac_tpu_torch.parallel.sharding import (ShardedQwireDecoder,
                                                ShardedStreamBatchDecoder)
+from heaac_tpu_torch.utils import trace
 from test_torch_common import bench_streams, golden_tool, streams_of
 
 pytestmark = pytest.mark.gpu
@@ -339,3 +342,114 @@ def test_sharded_stream_batch_decoder_on_one_card(cuda):
         streams, devices=[cuda, cuda], max_frames=8).decode())
     assert k1 == {30: 16, 50: 0}
     assert int((got.int() - ref.cpu().int()).abs().max()) <= 1
+
+
+def _wire(kind: str, n: int, T: int, dev):
+    """n streams of one kind, T frames, parsed and uploaded as the
+    pipelined decoder does -> (lanes, heap, recs, couple, static args)."""
+    if kind == "ds":
+        data, asc = golden_tool().ds_streams()
+        frames = [parse_stream_qwire(d, asc=asc, max_frames=T)[0]
+                  for d in data[:n]]
+        heap, _, recs = pack_planner_frames(frames, 1, T)
+        sa = spec_static_args(recs)
+        S = -(-max(64, int((recs[..., R_W1] & 0xFFFF).max())) // 64) * 64
+        return n, torch.from_numpy(heap).to(dev), \
+            torch.from_numpy(recs).to(dev), None, dict(
+                is34=0, downsampled=1, S=S, rate_idx=6, NB=sa["NB"],
+                NS=sa["NS"], SEC=sa["SEC"])
+    dec = QwirePipelinedDecoder(streams_of(kind, n), group_streams=n,
+                                max_frames=T, device=dev)
+    cur, Tg, sa, couple = dec._parse_with_retry(0)
+    heap, recs, couple = dec._upload(0, cur, Tg, couple)
+    return dec.L, heap, recs, couple, dict(is34=dec.is34,
+                                           downsampled=dec.ds, **sa)
+
+
+def _scan(wire, lo: int, hi: int, carry=None):
+    """qwire_scan_decode over frames lo:hi of a _wire -> (carry, pcm)."""
+    L, heap, recs, couple, sa = wire
+    if couple is not None:
+        couple = couple[:3] + (couple[3][lo:hi],)
+    if carry is None:
+        carry = heaac_graph.init_qwire_carry(L, heap.device)
+    return heaac_graph.qwire_scan_decode(heap, recs[lo:hi], carry,
+                                         couple=couple, **sa)
+
+
+def _counted(fn):
+    """(fn(), the scan.graph counters and K1's launches that moved)."""
+    before = trace.snapshot()
+    out = fn()
+    after = trace.snapshot()
+    return out, {k: after[k] - before.get(k, 0) for k in after
+                 if k.startswith(("scan.graph.", "k1.launches."))
+                 and after[k] != before.get(k, 0)}
+
+
+def _leaves(carry) -> list:
+    return [a for a, _ in step_graph._zip(carry, carry)]
+
+
+def _eager_scan(wire, T: int):
+    """The scan's prologue, then its frame step called eagerly frame by
+    frame on contiguous rows, as the scan steps (the loop the graph
+    replaces) -> (carry, pcm)."""
+    L, heap, recs, couple, sa = wire
+    heap, recs, coeffs = heaac_graph.decode_all_coeffs(
+        heap, recs[:T], sa["S"], sa["rate_idx"], sa["NB"], sa.get("MS", 0),
+        sa["NS"], sa["SEC"])
+    coeffs = coeffs.contiguous()
+    carry, out = heaac_graph.init_qwire_carry(L, heap.device), []
+    for t in range(T):
+        o, carry = heaac_graph.heaac_frame_qwire(
+            coeffs[t], recs[t], heap, carry, sa["is34"], sa["downsampled"],
+            sa.get("rows_pair", 0))
+        out.append(o if couple is not None else heaac_graph.to_int16(o))
+    pcm = torch.stack(out)
+    if couple is not None:
+        pcm = heaac_graph.to_int16(heaac_graph.couple_mix(
+            pcm, *couple[:3], couple[3][:T]))
+    return carry, pcm
+
+
+@pytest.mark.parametrize("kind,n,T", [("he20", 8, 50), ("he_v1s", 4, 16),
+                                      ("cce_after", 2, 16), ("ds", 2, 16)])
+def test_graph_scan_equals_eager_steps(cuda, kind, n, T):
+    """The graph-replayed scan against its frame step called eagerly
+    frame by frame, bit for bit: 20-band HE-AAC v2, stereo with coupled
+    SBR rows (rows_pair 1), coupling (the float output mixed after the
+    loop) and downsampled SBR."""
+    wire = _wire(kind, n, T, cuda)
+    (c_g, pcm), k = _counted(lambda: _scan(wire, 0, T))
+    eager = k.get("scan.graph.eager_steps", 0)
+    assert eager <= 1 and k["scan.graph.replays"] == T - eager
+    assert k.get("scan.graph.captures", 0) == eager
+    assert k["k1.launches.30"] == T
+    carry, ref = _eager_scan(wire, T)
+    assert wire[4].get("rows_pair", 0) == (kind == "he_v1s")
+    assert (wire[3] is not None) == (kind == "cce_after")
+    assert int(pcm.abs().max()) > 1000
+    assert torch.equal(pcm, ref)
+    for a, b in zip(_leaves(c_g), _leaves(carry)):
+        assert torch.equal(a, b)
+
+
+def test_graph_scan_chains_and_replays_from_the_cache(cuda):
+    """Two chained scans equal one long scan, and the first scan's
+    returned carry is left as it was by the second; a second scan of the
+    same shapes captures nothing and replays every step; K1 counts one
+    launch a step either way."""
+    T = 16
+    wire = _wire("he20", 8, T, cuda)
+    c1, p1 = _scan(wire, 0, T // 2)
+    kept = [x.clone() for x in _leaves(c1)]
+    c2, p2 = _scan(wire, T // 2, T, c1)
+    assert all(torch.equal(a, b) for a, b in zip(kept, _leaves(c1)))
+    _, whole = _scan(wire, 0, T)
+    assert torch.equal(torch.cat([p1, p2]), whole)
+    (c3, again), k = _counted(lambda: _scan(wire, 0, T))
+    assert torch.equal(again, whole)
+    assert k == {"scan.graph.replays": T, "k1.launches.30": T}
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(c2),
+                                                 _leaves(c3)))

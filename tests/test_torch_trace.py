@@ -5,7 +5,8 @@ on the CPU: nothing is recorded outside ``recording()``; inside it, a
 scan.prologue / scan.step -> expand_frame / expand_ps / frame_graph ->
 k1, with the bucket's attributes equal to its ``bucket_stats`` record;
 ``decode_frame`` gives its four stages; spans land on the profiler's
-clock."""
+clock; on the CPU the scan steps eagerly (no CUDA graph), and the PS row
+decoder's table comes from the per-device cache."""
 import collections
 import functools
 import logging
@@ -17,6 +18,7 @@ from torch.autograd.profiler import profile, record_function
 from heaac_tpu_torch import Decoder, decode_batch
 from heaac_tpu_torch.codec import batch
 from heaac_tpu_torch.host import split_adts_stream
+from heaac_tpu_torch.ops import ps_huff
 from heaac_tpu_torch.utils import trace
 from test_torch_common import streams_of
 
@@ -142,3 +144,45 @@ def test_spans_on_the_profiler_clock():
     assert t0 - slack <= inner.start_ns()
     assert inner.start_ns() + inner.duration_ns() <= t1 + slack
     assert abs(live.drift_ns) < slack
+
+
+def test_cpu_scan_steps_eagerly():
+    """On the CPU every frame step of the qwire scan runs eagerly: the
+    scan counts one eager step a frame and never captures or replays a
+    CUDA graph."""
+    with trace.recording() as rec:
+        decode_batch(_heads(2), device="cpu")
+    graph = {k: v for k, v in rec.counters.items()
+             if k.startswith("scan.graph.")}
+    assert graph == {"scan.graph.eager_steps": FRAMES}
+    assert [s.attrs for s in rec.spans if s.name == "scan.step"] == \
+        [{}] * FRAMES
+
+
+def test_ps_huff_table_from_the_device_cache(monkeypatch):
+    """The PS row decoder's iid table comes from the per-device LUT, the
+    same tensor on every call: a frame step uploads nothing (a CUDA graph
+    cannot capture an upload)."""
+    dev = torch.device("cpu")
+    tab = ps_huff._luts(dev)[4]
+    assert tab is ps_huff._luts(dev)[4]
+    assert tab.tolist() == [ps_huff.IID_DF0, ps_huff.IID_DF1,
+                            ps_huff.IID_DT0, ps_huff.IID_DT1]
+    B = 2
+    z = torch.zeros(B, dtype=torch.long)
+    one = torch.ones(B, dtype=torch.long)
+    args = dict(region=torch.zeros((B, ps_huff.RW), dtype=torch.long),
+                start_off=z, rbits=z + 64, enable_iid=one, iq=z,
+                nr_iid=z + 20, enable_icc=one, nr_icc=z + 20, enable_ext=z,
+                ne_pre=one, penv=one, nipd=z, header=one)
+    first = ps_huff.decode_ps_region(**args,
+                                     carry=ps_huff.init_ps_carry(B, dev))
+
+    def no_upload(*a, **kw):
+        raise AssertionError("decode_ps_region made a tensor from data")
+
+    monkeypatch.setattr(torch, "tensor", no_upload)
+    again = ps_huff.decode_ps_region(**args,
+                                     carry=ps_huff.init_ps_carry(B, dev))
+    for a, b in zip(first[:6], again[:6]):
+        assert torch.equal(a, b)
