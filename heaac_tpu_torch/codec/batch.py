@@ -466,6 +466,25 @@ class QwirePipelinedDecoder:
         self._counts_in_input_order()
         return outs
 
+    def stream_pcm(self, outs) -> list:
+        """``decode()``'s group tensors -> one CPU int16 tensor [n, ch]
+        per stream, in input order: stereo for a mono core (PS), one
+        channel per output lane otherwise; coupling lanes are dropped."""
+        outs = [o.cpu() for o in outs]
+        lps = self.out_nl
+        res = []
+        for j in range(len(self.streams)):
+            # groups are length-bucketed: map through the sort permutation
+            pcm = outs[self.group_of[j]]
+            lane0 = self.slot_of[j] * self.nl
+            lanes = pcm[:self.frame_counts[j], lane0:lane0 + lps]
+            if lps == 1:                         # mono core -> stereo
+                res.append(lanes[:, 0].permute(0, 2, 1).reshape(-1, 2))
+            else:                                # one channel per lane
+                res.append(torch.stack(
+                    [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1))
+        return res
+
     def _counts_in_input_order(self) -> None:
         """frame_counts, appended in parse order (``self.order``, padding
         copies last), -> one count per input stream, in input order."""
@@ -815,19 +834,8 @@ def _decode_bucket(key, group, idxs, results, device) -> dict:
         init_s = time.perf_counter() - t0        # the profile; parse later
         outs = bd.decode()                       # [T, L, 2, 2048] each
         with span("bucket.pcm"):
-            outs = [o.cpu() for o in outs]
-            lps = bd.out_nl
-            for j, i in enumerate(idxs):
-                # groups are length-bucketed: map through the sort
-                # permutation
-                pcm = outs[bd.group_of[j]]
-                lane0 = bd.slot_of[j] * bd.nl
-                lanes = pcm[:bd.frame_counts[j], lane0:lane0 + lps]
-                if lps == 1:                     # mono core -> stereo
-                    results[i] = lanes[:, 0].permute(0, 2, 1).reshape(-1, 2)
-                else:                            # one channel per lane
-                    results[i] = torch.stack(
-                        [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1)
+            for i, pcm in zip(idxs, bd.stream_pcm(outs)):
+                results[i] = pcm
         errored = bd.error_count
     stats = dict(key=key, streams=len(idxs), frames=sum(bd.frame_counts),
                  steps=bd.T if key[0] == "lc" else sum(bd.group_T),

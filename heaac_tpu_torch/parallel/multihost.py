@@ -4,8 +4,9 @@ metrics.
 
 Counterpart of ``heaac_tpu/parallel/multihost.py``.  Streams are
 independent, so each process (one per host, or one per card) parses and
-decodes its shard with ``QwirePipelinedDecoder`` on its own device; no
-audio crosses processes.  The one all-reduce (SUM over the process
+decodes its shard with ``QwirePipelinedDecoder`` on its own device and
+can keep the shard's int16 PCM on its own host; no audio crosses
+processes.  The one all-reduce (SUM over the process
 group) carries [frames, errors, audio seconds, devices], so every
 process ends with the same global metrics.
 
@@ -29,7 +30,9 @@ its K1 launches per napb and its decode seconds.
 Differences from the JAX package: the process group gets its address,
 size and rank from the arguments (``--cpu-devices``, XLA's virtual
 devices, has no counterpart: ``--device cpu``); the metrics are reduced
-in float64, where JAX sums float32 (exact counts up to 2**53 frames).
+in float64, where JAX sums float32 (exact counts up to 2**53 frames);
+``decode_shard_and_reduce``'s ``pcm_out`` hands back the shard's PCM,
+where the JAX function discards it.
 """
 from __future__ import annotations
 
@@ -45,10 +48,12 @@ import torch.distributed as dist
 from ..codec.batch import QwirePipelinedDecoder
 from ..device import resolve
 from ..ops import ps_decorrelate
+from ..utils.trace import count, span
 
 
 def decode_shard_and_reduce(streams_local, device="cuda",
-                            info_out: dict | None = None) -> dict:
+                            info_out: dict | None = None,
+                            pcm_out: list | None = None) -> dict:
     """Decode this process's streams on ``device`` (one group), then
     all-reduce the metrics over the default process group.  Returns the
     global metrics (the same on every rank): ``frames``, ``errors``,
@@ -56,26 +61,48 @@ def decode_shard_and_reduce(streams_local, device="cuda",
     shard adds zeros.  With ``info_out`` it also receives
     ``num_devices``, the all-reduced count of ranks' devices, and
     ``decode_s``, this process's seconds from the decoder's construction
-    to the end of its decode (the all-reduce not included)."""
+    to the end of its decode (the all-reduce not included).  With
+    ``pcm_out`` (a list) it also receives one CPU int16 tensor [n, ch]
+    per local stream, in ``streams_local``'s order, as ``decode_batch``
+    gives it; the PCM reaches the host before the all-reduce.  Call
+    after call in one process group reuses the process's step graphs.
+
+    Spans: ``multihost.decode`` (attrs ``rank``, ``streams``,
+    ``frames``: parse through the PCM on the host), under it
+    ``multihost.pcm`` (the copies to the host and the per-stream split),
+    then ``multihost.allreduce`` (the collective, with the wait for the
+    slowest rank).  Counters ``multihost.calls``, ``multihost.streams``,
+    ``multihost.frames`` (this process's)."""
     dev = resolve(device)
     frames = errors = 0
     audio_s = 0.0
     t0 = time.perf_counter()
-    if streams_local:
-        dec = QwirePipelinedDecoder(streams_local,
-                                    group_streams=len(streams_local),
-                                    device=dev)
-        dec.decode()
-        frames = int(sum(dec.frame_counts))
-        errors = int(dec.error_count)
-        audio_s = float(dec.audio_seconds())
+    with span("multihost.decode", rank=dist.get_rank(),
+              streams=len(streams_local)) as sp:
+        if streams_local:
+            dec = QwirePipelinedDecoder(streams_local,
+                                        group_streams=len(streams_local),
+                                        device=dev)
+            outs = dec.decode()
+            if pcm_out is not None:
+                with span("multihost.pcm"):
+                    pcm_out.extend(dec.stream_pcm(outs))
+            del outs
+            frames = int(sum(dec.frame_counts))
+            errors = int(dec.error_count)
+            audio_s = float(dec.audio_seconds())
+        sp.set(frames=frames)
     decode_s = time.perf_counter() - t0
+    count("multihost.calls")
+    count("multihost.streams", len(streams_local))
+    count("multihost.frames", frames)
     # NCCL reduces tensors on the card, gloo on the CPU
     where = dev if dist.get_backend() == "nccl" else torch.device("cpu")
-    tot = torch.tensor([frames, errors, audio_s, 1.0], dtype=torch.float64,
-                       device=where)
-    dist.all_reduce(tot)
-    tot = tot.tolist()
+    with span("multihost.allreduce"):
+        tot = torch.tensor([frames, errors, audio_s, 1.0],
+                           dtype=torch.float64, device=where)
+        dist.all_reduce(tot)
+        tot = tot.tolist()
     if info_out is not None:
         info_out.update(num_devices=int(tot[3]), decode_s=decode_s)
     return dict(frames=int(tot[0]), errors=int(tot[1]),

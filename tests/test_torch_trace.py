@@ -4,9 +4,11 @@ on the CPU: nothing is recorded outside ``recording()``; inside it, a
 -> group.parse (on the parse worker) / parse_wait / upload / scan ->
 scan.prologue / scan.step -> expand_frame / expand_ps / frame_graph ->
 k1, with the bucket's attributes equal to its ``bucket_stats`` record;
-``decode_frame`` gives its four stages; spans land on the profiler's
-clock; on the CPU the scan steps eagerly (no CUDA graph), and the PS row
-decoder's table comes from the per-device cache."""
+``decode_frame`` gives its four stages; a ``multihost`` rank's call
+gives multihost.decode (with the group spans) -> multihost.pcm, then
+multihost.allreduce, and its three counters; spans land on the
+profiler's clock; on the CPU the scan steps eagerly (no CUDA graph), and
+the PS row decoder's table comes from the per-device cache."""
 import collections
 import functools
 import logging
@@ -119,6 +121,56 @@ def test_decode_frame_stages():
                                           "frame.issue", "frame.download"]
     assert all(_parent_name(s, by_id) == "frame.issue"
                for s in rec.spans if s.name == "k1")
+
+
+def test_multihost_spans_and_counters(tmp_path):
+    """One rank in a gloo group of one, twice: with ``pcm_out`` the call
+    is multihost.decode (attrs rank, streams, frames) holding the group
+    spans and multihost.pcm, then multihost.allreduce; without it, no
+    multihost.pcm.  Counters: calls, streams, frames."""
+    import torch.distributed as dist
+
+    from heaac_tpu_torch.parallel.multihost import decode_shard_and_reduce
+
+    streams = _heads(2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        with trace.recording() as rec:
+            decode_shard_and_reduce(streams, "cpu", pcm_out=[])
+        with trace.recording() as bare:
+            decode_shard_and_reduce(streams, "cpu")
+    finally:
+        dist.destroy_process_group()
+    by_id = _by_id(rec)
+    tree = collections.Counter((s.name, _parent_name(s, by_id))
+                               for s in rec.spans
+                               if _parent_name(s, by_id) in (
+                                   None, "multihost.decode"))
+    assert tree == {
+        ("multihost.decode", None): 1, ("multihost.allreduce", None): 1,
+        ("multihost.pcm", "multihost.decode"): 1,
+        ("group.parse", "multihost.decode"): 1,
+        ("group.parse_wait", "multihost.decode"): 1,
+        ("group.upload", "multihost.decode"): 1,
+        ("group.scan", "multihost.decode"): 1}
+    assert sum(s.name == "scan.step" for s in rec.spans) == FRAMES
+    dec = next(s for s in rec.spans if s.name == "multihost.decode")
+    red = next(s for s in rec.spans if s.name == "multihost.allreduce")
+    assert dec.attrs == dict(rank=0, streams=2, frames=2 * FRAMES)
+    assert dec.end_ns <= red.start_ns
+    for s in rec.spans:
+        if s.parent is not None:
+            up = by_id[s.parent]
+            assert up.start_ns <= s.start_ns and s.end_ns <= up.end_ns, \
+                s.name
+    for r in (rec, bare):
+        assert {k: v for k, v in r.counters.items()
+                if k.startswith("multihost.")} == {
+            "multihost.calls": 1, "multihost.streams": 2,
+            "multihost.frames": 2 * FRAMES}
+    assert "multihost.pcm" not in {s.name for s in bare.spans}
+    assert "multihost.decode" in {s.name for s in bare.spans}
 
 
 def test_spans_on_the_profiler_clock():
