@@ -5,17 +5,28 @@
 
 Phases (any failure exits non-zero):
   1. card and versions (refuses to run without CUDA);
-  2. build, all at once: the CUDA kernel K1 (nvcc, with ptxas's register
-     and shared-memory report), the first K1 design kept as a yardstick
+  2. build, all at once: the CUDA kernels K1 and the qwire step's row
+     decoders (nvcc, each with ptxas's register and shared-memory
+     report), the first K1 design kept as a yardstick
      (tools/k1_thread_per_band.cu) and the native parser (g++);
-  3. kernel check: K1 against its plain PyTorch version, bit for bit
+  3. kernel checks: (a) K1 against its plain PyTorch version, bit for bit
      (max |diff| = 0.0), at B=512, B=256 (the width of decode_batch's
      34-band stream groups) and ragged B, napb 30 and 50.  Device
      times from torch.profiler's kernel records, for K1 and the yardstick
      in turns (yardstick, K1, K1, yardstick): warm (the same inputs again,
      in L2) and cold (a 128 MB write before each launch, not counted);
      the HBM bound and its share on the cold time; the plain version's
-     time with CUDA events;
+     time with CUDA events; (b) the row-decoder kernel
+     (``ops/qwire_rows.decode_rows``) against the plain row decoders
+     (``decode_rows_plain``), all 21 outputs bit for bit, on the
+     arguments ``qwire.expand_frame`` hands them over the first
+     GOLDEN_FRAMES frame steps of phase 4's 512 streams and of 256 stereo
+     HE-AAC v1 streams (512 lanes, coupled rows), each stepped eagerly
+     on the card, tiled to 256, 512 and 1024 lanes, ``pair`` off and
+     on; device times from torch.profiler's kernel records over the
+     recorded frames, warm and cold as K1's, the HBM bound of each
+     launch's inputs and outputs and its share on the cold time, and
+     the plain decoders' time with CUDA events;
   4. main path: heaac_tpu_torch.codec.batch.QwirePipelinedDecoder with
      its default device (the card) over 512 lanes, each its own byte
      buffer tiled from benchdata/heaac_bench_stream_{0..7}.aac; checks
@@ -151,11 +162,11 @@ Phases (any failure exits non-zero):
      (tests/data/sharded_golden_jax.npz); (c) two processes of ``python
      -m heaac_tpu_torch.parallel.multihost`` on cuda:0 with gloo over
      the 8 bench streams: both report the same global metrics (400
-     frames, 17.0667 s of audio, 200 frames each), each its device and
-     50 K1 launches at napb 30; (d) with two cards or more, (a) on
-     ["cuda:0", "cuda:1"] (K1 counted on each card) and (c) with NCCL
-     on one card per rank, else it prints that cross-card runs were not
-     measured;
+     frames, 17.0667 s of audio, 200 frames each), each its device, 50
+     K1 launches at napb 30 and 50 row-kernel launches at pair 0; (d)
+     with two cards or more, (a) on ["cuda:0", "cuda:1"] (K1 counted on
+     each card) and (c) with NCCL on one card per rank, else it prints
+     that cross-card runs were not measured;
  12. the encode direction and the stream generators, host numpy: (a)
      heaac_tpu_torch.codec.encoder.AacEncoder over every case of
      tests/data/encode_golden_jax.npz (its seeded PCM: LC mono and
@@ -211,12 +222,17 @@ Phases (any failure exits non-zero):
      every number of the line finite and not negative, its device this
      card; its figures beside phase 4's realtime, and the card memory
      peak.
+Beside K1's launches every path counts the row-decoder kernel's (one
+launch a qwire frame step, by ``pair``; none on a path that never calls
+``expand_frame``); a path whose count differs fails the run at its end,
+after every phase has run and printed its counts.
 Each phase prints its seconds.  The line before last is the card's name
 and power limit (nvidia-smi), the one before it the kernel table as JSON;
 the last line is the result.
 """
 import ctypes
 import importlib.util
+import itertools
 import json
 import logging
 import os
@@ -252,6 +268,9 @@ GOLDEN_CHECKED = [(kind, i) for kind in ("he20", "he34", "lc", "he_v1s",
                                          "cce_after") for i in (0, 1)] + [
     ("cce_before", 0)]
 GOLDEN_FRAMES = 16
+ROWS_LANES = (GROUP_LANES, LANES, 2 * LANES)   # phase 3 (b): widths
+ROWS_SEEN = {}                 # path -> the row kernel's launches by pair
+ROWS_WRONG = []                # (path, launches, expected) that differ
 FLIP_FILE = "tests/data/heaac_v2_flip_{}.aac"
 FLIP_CCE_FILE = "tests/data/heaac_flip_cce_0.aac"
 FLIP_BATCH = 4                 # flip streams 0-3 in phase 7 (a)
@@ -284,12 +303,27 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def build_all(K, native) -> str:
+def ptxas_report(K, src: str) -> float:
+    """Compile ``src`` with K1's nvcc flags and ``-Xptxas -v`` into a
+    scratch file, for ptxas's register, stack and spill report; returns
+    the seconds spent."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-Xptxas", "-v", src,
+                        "-o", os.path.join(tmp, "report.so")], check=True)
+    return time.perf_counter() - t0
+
+
+def build_all(K, rows, native) -> str:
     """Compile every native source at once (one compiler process each);
     returns the yardstick's library path."""
     ys_so = os.path.join(native.BUILD_DIR, "libk1_thread_per_band.so")
     jobs = {
         "ps_decorrelate.cu (nvcc)": lambda: K.build(("-Xptxas", "-v")),
+        "qwire_rows.cu (nvcc)": rows.build,
+        "qwire_rows.cu ptxas report (nvcc)": lambda: ptxas_report(
+            K, rows.SRC),
         "k1_thread_per_band.cu (nvcc)": lambda: native.compile_if_stale(
             ys_so, [YARDSTICK_SRC],
             [K._nvcc(), *K.NVCC_FLAGS, YARDSTICK_SRC]),
@@ -452,8 +486,138 @@ def kernel_check(K, ys):
 
 
 def reset_launches(K) -> None:
-    for napb in K.launches:
-        K.launches[napb] = 0
+    """Zero K1's launch counts and the row-decoder kernel's."""
+    from heaac_tpu_torch.ops import qwire_rows
+    for counter in (K.launches, qwire_rows.launches):
+        for key in counter:
+            counter[key] = 0
+
+
+def counts(K) -> tuple:
+    """(K1's launches by napb, the row-decoder kernel's by pair) since
+    reset_launches."""
+    from heaac_tpu_torch.ops import qwire_rows
+    return dict(K.launches), dict(qwire_rows.launches)
+
+
+def rows_check(path: str, got: dict, expect: dict) -> None:
+    """Print the row-decoder kernel's launches of ``path`` beside what its
+    qwire frame steps imply (``expect``: pair -> steps, the pairs left
+    out none); a difference is kept and fails the run at its end."""
+    want = {0: 0, 1: 0, **expect}
+    ROWS_SEEN[path] = got
+    print(f"row kernel, {path}: launches {got}, expected {want}", flush=True)
+    if got != want:
+        ROWS_WRONG.append((path, got, want))
+
+
+def test_helpers():
+    """tests/test_torch_common.py as a module: ``leaves`` and ``lanes``,
+    the tree helpers the GPU tests use."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_common", os.path.join(REPO, "tests",
+                                          "test_torch_common.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stream_row_args(streams: list, frames: int) -> list:
+    """The (sbr, ps, pair) arguments ``qwire.expand_frame`` hands the row
+    decoders over the first ``frames`` frame steps of ``streams``, one
+    QwirePipelinedDecoder group on the card, stepped eagerly with the
+    plain decoders."""
+    from heaac_tpu_torch.codec import heaac_graph
+    from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
+    from heaac_tpu_torch.ops import qwire_rows
+    dec = QwirePipelinedDecoder(streams, group_streams=len(streams),
+                                max_frames=frames)
+    cur, T, sa, couple = dec._parse_with_retry(0)
+    heap, recs, _ = dec._upload(0, cur, T, couple)
+    heap, recs, coeffs = heaac_graph.decode_all_coeffs(
+        heap, recs, sa["S"], sa["rate_idx"], sa["NB"], sa.get("MS", 0),
+        sa["NS"], sa["SEC"])
+    coeffs = coeffs.contiguous()
+    seen = []
+
+    def record(sbr, ps, pair):
+        seen.append((sbr, ps, pair))
+        return qwire_rows.decode_rows_plain(sbr, ps, pair)
+
+    real = qwire_rows.decode_rows
+    qwire_rows.decode_rows = record
+    try:
+        carry = heaac_graph.init_qwire_carry(dec.L, heap.device)
+        for t in range(T):
+            _, carry = heaac_graph.heaac_frame_qwire(
+                coeffs[t], recs[t], heap, carry, dec.is34, dec.ds,
+                sa.get("rows_pair", 0))
+    finally:
+        qwire_rows.decode_rows = real
+    if len(seen) != T:
+        raise SystemExit(f"phase 3 (b): {len(seen)} row decodes over {T} "
+                         "frame steps")
+    return seen
+
+
+def rows_kernel_check(card: str, bench: list, stereo: list) -> dict:
+    """Phase 3 (b): the row-decoder kernel against the plain row decoders
+    on the regions of the main path's streams and of stereo streams, bit
+    for bit, at ROWS_LANES lanes with ``pair`` off and on; device times
+    per launch.  Returns the kernel table's entry."""
+    from heaac_tpu_torch.ops import qwire_rows
+    H = test_helpers()
+    cases = {"he20": (stream_row_args([bench[i % 8] for i in range(LANES)],
+                                      GOLDEN_FRAMES), False),
+             "he_v1s": (stream_row_args(
+                 [stereo[i % 8] for i in range(GROUP_LANES)],
+                 GOLDEN_FRAMES), True)}
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    unequal, widths = [], {}
+    for name, (frames, given) in cases.items():
+        L = frames[0][0]["region"].shape[0]
+        if {pair for _, _, pair in frames} != {given} or L != LANES:
+            raise SystemExit(f"phase 3 (b) {name}: {L} lanes, pair "
+                             f"{ {pair for _, _, pair in frames} }")
+        for B in ROWS_LANES:
+            idx = torch.arange(B, device="cuda") % L
+            tiles = [(H.lanes(sbr, idx), H.lanes(ps, idx))
+                     for sbr, ps, _ in frames]
+            for pair in (False, True):
+                for t, (sbr, ps) in enumerate(tiles):
+                    got = qwire_rows.decode_rows(sbr, ps, pair)
+                    want = qwire_rows.decode_rows_plain(sbr, ps, pair)
+                    if len(H.leaves(got)) != 21 or not all(
+                            a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(H.leaves(got), H.leaves(want))):
+                        unequal.append((name, B, pair, t))
+            it = itertools.cycle(tiles)
+            launch = lambda: qwire_rows.decode_rows(  # noqa: E731
+                *next(it), given)
+            cold = device_ms(launch, "qwire_rows_kernel", flush)
+            warm = device_ms(launch, "qwire_rows_kernel")
+            plain = events_ms(lambda: qwire_rows.decode_rows_plain(
+                *next(it), given), 5)
+            sbr, ps = tiles[0]
+            nbytes = sum(x.numel() * x.element_size() for x in H.leaves(
+                (sbr, ps, qwire_rows.decode_rows(sbr, ps, given))))
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            widths[f"{name}_{B}"] = dict(
+                ms=cold, warm_ms=warm, plain_ms=plain, bytes=nbytes,
+                bound_ms=bound_ms, bound_by="bytes", share=bound_ms / cold)
+            print(f"row kernel {name} B={B} pair={int(given)}: device ms "
+                  f"cold {cold:.5f} warm {warm:.5f}; HBM bound "
+                  f"{bound_ms:.5f} ms ({nbytes} bytes), cold share "
+                  f"{bound_ms / cold:.4f}; plain {plain:.4f} ms", flush=True)
+    del flush
+    checked = len(ROWS_LANES) * 2 * sum(len(f) for f, _ in cases.values())
+    print(f"row kernel vs plain row decoders: {checked} launches ({len(cases)}"
+          f" stream kinds x {GOLDEN_FRAMES} frames x lanes {ROWS_LANES} x "
+          f"pair off and on), {len(unequal)} unequal on {card}", flush=True)
+    if unequal:
+        raise SystemExit(f"row kernel differs from the plain row decoders "
+                         f"(kind, lanes, pair, frame): {unequal[:20]}")
+    return dict(widths[f"he20_{LANES}"], widths=widths, unequal=0)
 
 
 class BucketLog(logging.Handler):
@@ -522,7 +686,7 @@ def mixed_batch(K, card: str, files: dict) -> dict:
     t0 = time.perf_counter()
     outs = decode_batch(streams)
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
     logger.removeHandler(bucket_log)
 
     frames = {kind: [count_adts_frames(d) for d in files[kind]]
@@ -555,6 +719,12 @@ def mixed_batch(K, card: str, files: dict) -> dict:
         if launches[napb] != expect:
             raise SystemExit(f"K1 napb {napb} launched {launches[napb]} "
                              f"times, expected {expect}")
+    # one row-kernel launch a step of each HE stream group, coupled rows
+    # (pair 1) in the stereo bucket
+    steps = {k: -(-n // GROUP_LANES) * frames[k][0] for k, n in n_of.items()}
+    rows_check("phase 5", rows, {
+        0: steps["he34"] + steps["he20"] + steps["cce"],
+        1: steps["he_v1s"]})
 
     for (kind, i), pcm in zip(items, outs):
         if kind == "garbage":
@@ -606,9 +776,10 @@ def stereo_main_path(K, card: str, files: dict) -> int:
     t0 = time.perf_counter()
     outs = dec.decode()
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
     pcm = outs[0].cpu().numpy()                    # [T, 2 x 256, 2, 2048]
     T, L = pcm.shape[:2]
+    rows_check("phase 6", rows, {1: T})
     audio_s = dec.audio_seconds()
     print(f"stereo main path: {GROUP_LANES} streams, {L} lanes x {T} frames,"
           f" MS {dec.MS}, rows_pair {dec.RP}, audio {audio_s:.3f} s, wall "
@@ -704,7 +875,7 @@ def flip_batch(K, card: str, bench: list) -> dict:
     t0 = time.perf_counter()
     outs = decode_batch(streams)
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
     logger.removeHandler(flog)
     names = [name for name, _ in items]
     flip_pos = sorted(k for k, name in enumerate(names)
@@ -740,6 +911,8 @@ def flip_batch(K, card: str, bench: list) -> dict:
           f"{[st['frames'] for st in flog.flips]})", flush=True)
     if launches != expect:
         raise SystemExit(f"K1 launched {launches}, expected {expect}")
+    rows_check("phase 7 (a)", rows, {0: sum(st["steps"] for st in flog.stats)
+                                     + sum(st["frames"] for st in flog.flips)})
     gold = flip_gold()
     rows = GOLDEN_FRAMES * 2048
     worst = {}
@@ -817,7 +990,8 @@ def flip_full_width(K, card: str, device="cuda") -> dict:
     planner_scan(lanes, T, rate_idx, device)       # warm-up
     reset_launches(K)
     pcm, wall = planner_scan(lanes, T, rate_idx, device)
-    launches = dict(K.launches)
+    launches, rows = counts(K)
+    rows_check("phase 7 (b)", rows, {0: T})
     audio_s = LANES * T * 2048 / 48000
     print(f"flip scan full width: {LANES} lanes x {T} frames, audio "
           f"{audio_s:.3f} s, upload + scan {wall:.3f} s, realtime "
@@ -875,7 +1049,7 @@ def lc_prober_batch(K, card: str, bench: list) -> dict:
     t0 = time.perf_counter()
     outs = decode_batch(streams)
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
     logger.removeHandler(flog)
     names = [name for name, _ in items]
     he_first = next(name for name in names if name.startswith("he20"))
@@ -912,6 +1086,10 @@ def lc_prober_batch(K, card: str, bench: list) -> dict:
           f"the prober's frame 0 of {len(PROBED)} streams)", flush=True)
     if launches != expect:
         raise SystemExit(f"K1 launched {launches}, expected {expect}")
+    # the LC bucket and the prober's single-stream frame 0 run no qwire
+    # step
+    rows_check("phase 8 (a)", rows,
+               {0: -(-n_he // GROUP_LANES) * he["steps"]})
     if he_first not in PROBED or not profile_parse:
         raise SystemExit("the HE bucket's stream 0 did not take its profile "
                          "from the Python planner")
@@ -967,7 +1145,8 @@ def downsampled_full_width(K, card: str, device="cuda") -> dict:
     planner_scan(lanes, T, 6, device, downsampled=1)     # warm-up
     reset_launches(K)
     pcm, wall = planner_scan(lanes, T, 6, device, downsampled=1)
-    launches = dict(K.launches)
+    launches, rows = counts(K)
+    rows_check("phase 8 (b)", rows, {0: T})
     audio_s = LANES * T * 1024 / 24000
     print(f"downsampled scan full width: {LANES} lanes x {T} frames, pcm "
           f"{pcm.shape}, audio {audio_s:.3f} s, upload + scan {wall:.3f} s,"
@@ -1063,7 +1242,7 @@ def single_fallback_batch(K, card: str, bench: list) -> dict:
     t0 = time.perf_counter()
     outs = decode_batch([bytes(bytearray(d)) for _, d in items])
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
     logger.removeHandler(flog)
     he = {st["key"]: st for st in flog.stats}.get(("he", 6, 1, 0))
     singles = {names[st["stream"]]: st for st in flog.singles}
@@ -1084,6 +1263,7 @@ def single_fallback_batch(K, card: str, bench: list) -> dict:
     if launches != {30: he["steps"], 50: 0}:
         raise SystemExit(f"phase 9 (a): K1 launched {launches}, expected "
                          f"{he['steps']} at napb 30 (the batched bucket)")
+    rows_check("phase 9 (a)", rows, {0: he["steps"]})
     with np.load(tool.SINGLE_GOLDEN) as z:
         gold = {name: z[f"pcm_{name}"] for name in FALLBACK}
     worst = {}
@@ -1123,7 +1303,8 @@ def single_streams(K, card: str) -> dict:
             lambda: single_decode(name, "cpu", tool))
         reset_launches(K)
         pcm, rate, wall, frames = single_decode(name, "cuda", tool)
-        launches = dict(K.launches)
+        launches, rows = counts(K)
+        rows_check(f"phase 9 (b) {name}", rows, {})
         print(stream_line(name, frames, pcm.shape[0] / rate, wall, card)
               + f"; K1 launches {launches}, PS frames on the CPU {expect}",
               flush=True)
@@ -1192,7 +1373,8 @@ def k1_per_card(fn) -> tuple:
     replays = []
 
     def spy(self, *a):
-        replays.append((str(self.heap.device), sum(self.k1.values())))
+        replays.append((str(self.heap.device),
+                        sum(self.launches[0].values())))
         return real(self, *a)
 
     step_graph._StepGraph.replay = spy
@@ -1235,7 +1417,8 @@ def front_m4a_decodes(K, card: str) -> dict:
         t0 = time.perf_counter()
         (pcm, rate), calls = k1_calls(lambda: decode(m4a))
         wall = time.perf_counter() - t0
-        launches = dict(K.launches)
+        launches, rows = counts(K)
+        rows_check(f"phase 10 (a) {name}.m4a", rows, {})
         print(stream_line(f"{name}.m4a", nframes, pcm.shape[0] / rate, wall,
                           card) + f"; K1 launches {launches}, PS frames on "
               f"the CPU {expect}, lanes {sorted(set(b for b, _ in calls))}",
@@ -1317,7 +1500,8 @@ def front_cli(K, card: str) -> dict:
         reset_launches(K)
         (rc, _, err, warns), calls = k1_calls(
             lambda: cli_in_process(["-i", src, wav, "--benchmark"]))
-        launches = dict(K.launches)
+        launches, rows = counts(K)
+        rows_check("phase 10 (b)", rows, {0: len(split_adts_stream(data))})
         bench = json.loads(err.splitlines()[0])
         print(f"cli --benchmark on {os.path.basename(src)}: {bench} on "
               f"{card}; K1 launches {launches}, lanes "
@@ -1404,9 +1588,11 @@ def sharded_full_width(K, card: str, streams: list, main: dict,
     t0 = time.perf_counter()
     outs, per_card = k1_per_card(dec.decode)
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
     pcm = outs[0].numpy()
     T = pcm.shape[0]
+    rows_check(f"phase 11 sharded on {'+'.join(map(str, devices))}", rows,
+               {0: len(devices) * T})
     audio_s = dec.audio_seconds()
     rt = audio_s / wall
     names = [str(d) for d in dec.devices]
@@ -1452,9 +1638,11 @@ def sharded_cut(K, card: str, files: dict) -> dict:
         t0 = time.perf_counter()
         pcm = dec.decode()[0].numpy().astype(np.int32)
         wall = time.perf_counter() - t0
-        launches = dict(K.launches)
+        launches, rows = counts(K)
         lanes = [hi - lo for lo, hi in dec.bounds]
         busy = sum(1 for x in lanes if x)
+        rows_check(f"phase 11 (b) {name}", rows,
+                   {int(name == "stereo"): busy * GOLDEN_FRAMES})
         cpu = QwirePipelinedDecoder(streams, max_frames=GOLDEN_FRAMES,
                                     device="cpu").decode()[0].numpy()
         want = gold[f"pcm_{name}"]
@@ -1532,6 +1720,9 @@ def multihost_run(card: str, bench: list, backend: str, devices) -> dict:
               f"{g['process_frames'] * 2048 / 48000 / info['decode_s']:.1f}x"
               f" on {card}", flush=True)
         want_dev = devices[rank] or f"cuda:{rank}"
+        rows_check(f"phase 11 multihost {backend} rank {rank}",
+                   {int(k): v for k, v in info["rows_launches"].items()},
+                   {0: 50})
         if (info["device"], info["backend"], info["k1_launches"]) != (
                 want_dev, backend, {"30": 50, "50": 0}) \
                 or g["process_frames"] != frames // len(devices):
@@ -1593,7 +1784,8 @@ def encode_cases(K, card: str) -> None:
     t0 = time.perf_counter()
     outs = decode_batch(streams)
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
+    rows_check("phase 12 (a)", rows, {})
     cpu = decode_batch(streams, device="cpu")
     rows = {}
     for n, out, ref in zip(names, outs, cpu):
@@ -1656,13 +1848,14 @@ def distinct_streams(K, card: str, main4: dict) -> int:
     for dec in decs.values():
         dec.decode()                               # warm-up
     walls = {"distinct": [], "tiled": []}
-    for name in ("tiled", "distinct", "distinct", "tiled"):
+    for run, name in enumerate(("tiled", "distinct", "distinct", "tiled")):
         reset_launches(K)
         t0 = time.perf_counter()
         outs = decs[name].decode()
         walls[name].append(time.perf_counter() - t0)
-        launches = dict(K.launches)
+        launches, rows = counts(K)
         T = outs[0].shape[0]
+        rows_check(f"phase 12 (b) run {run} {name}", rows, {0: T})
         if launches != {30: T, 50: 0} or T != 50:
             raise SystemExit(f"phase 12 (b): {name}: K1 launched "
                              f"{launches} for {T} frames of 20-band PS")
@@ -1725,8 +1918,10 @@ def encode_cli(K, card: str) -> None:
                 data = f.read()
             reset_launches(K)
             out, out_rate = decode(data)
+            launches, rows = counts(K)
+            rows_check(f"phase 12 (c) {ext}", rows, {})
             outs[ext] = (out.numpy(), out_rate, len(data),
-                         json.loads(err.splitlines()[0]), dict(K.launches))
+                         json.loads(err.splitlines()[0]), launches)
     (a, ra, na, ma, ka), (b, rb, nb, mb, kb) = outs[".aac"], outs[".m4a"]
     snr = snr_db(pcm, a)
     print(f"cli -b 96k --ms: .aac {na} bytes {ma}, .m4a {nb} bytes {mb}; "
@@ -1796,14 +1991,18 @@ def plan_decoders(K, card: str, bench: list, streams: list,
     decs["qwire"] = (QwirePipelinedDecoder(streams, group_streams=LANES), 0.0)
     walls = {k: [] for k in decs}
     pcms, k1 = {}, {}
-    for name in ("qwire", "compact", "dense", "dense", "compact", "qwire"):
+    for run, name in enumerate(("qwire", "compact", "dense", "dense",
+                                "compact", "qwire")):
         dec = decs[name][0]
         reset_launches(K)
         t0 = time.perf_counter()
         pcm = dec.decode()
         torch.cuda.synchronize()
         walls[name].append(time.perf_counter() - t0)
-        k1[name] = dict(K.launches)
+        k1[name], rows = counts(K)
+        # the plan-record decoders never call expand_frame
+        rows_check(f"phase 13 (a, b) run {run} {name}", rows,
+                   {0: pcm[0].shape[0]} if name == "qwire" else {})
         pcms[name] = (pcm[0] if name == "qwire" else pcm).cpu().numpy()
     T = pcms["compact"].shape[0]
     for name, (dec, build_s) in decs.items():
@@ -1860,7 +2059,8 @@ def plan_decoders(K, card: str, bench: list, streams: list,
     t0 = time.perf_counter()
     outs = dec.decode()
     wall = time.perf_counter() - t0
-    out["c"] = dict(K.launches)
+    out["c"], rows = counts(K)
+    rows_check("phase 13 (c)", rows, {})
     audio_s = dec.audio_seconds()
     d = max(lsb(o.cpu().numpy(), a[:, g * GROUP_LANES:(g + 1) * GROUP_LANES])
             for g, o in enumerate(outs))
@@ -1882,7 +2082,8 @@ def plan_decoders(K, card: str, bench: list, streams: list,
     t0 = time.perf_counter()
     audio_s = bd.run()
     wall = time.perf_counter() - t0
-    out["e_batch"] = dict(K.launches)
+    out["e_batch"], rows = counts(K)
+    rows_check("phase 13 (e) BatchDecoder", rows, {})
     print(f"BatchDecoder: {LANES} copies of bench stream 0, {bd.T} frames, "
           f"wall {wall:.3f} s (warm-up {warm_s:.3f} s), realtime "
           f"{audio_s / wall:.1f}x, {1e3 * wall / bd.T:.1f} ms a frame; K1 "
@@ -1895,7 +2096,8 @@ def plan_decoders(K, card: str, bench: list, streams: list,
     t0 = time.perf_counter()
     qp = q.decode().cpu().numpy()
     wall = time.perf_counter() - t0
-    out["e_qstream"] = dict(K.launches)
+    out["e_qstream"], rows = counts(K)
+    rows_check("phase 13 (e) QStreamBatchDecoder", rows, {0: GOLDEN_FRAMES})
     d = (lsb(qp[:, :2], gold["he20_compact/pcm"][:GOLDEN_FRAMES]),
          lsb(qp, a[:GOLDEN_FRAMES, :8]))
     print(f"QStreamBatchDecoder: 8 bench streams x {GOLDEN_FRAMES} frames "
@@ -1917,6 +2119,7 @@ def plan_decoders(K, card: str, bench: list, streams: list,
         t0 = time.perf_counter()
         pcm, calls = k1_calls(dec.decode, key=lambda x: str(x[0].device))
         wall = time.perf_counter() - t0
+        rows_check(f"phase 13 (f) on {'+'.join(devices)}", counts(K)[1], {})
         per_card = {c: calls.count(c) for c in sorted(set(calls))}
         d = lsb(pcm.numpy(), a[:GOLDEN_FRAMES])
         print(f"ShardedStreamBatchDecoder on {devices}: {LANES} lanes x "
@@ -1946,7 +2149,8 @@ def plan_34band(K, files: dict) -> dict:
     t0 = time.perf_counter()
     pcm = dec.decode().cpu().numpy()
     wall = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches, rows = counts(K)
+    rows_check("phase 13 (d)", rows, {})
     d = lsb(pcm[:, :2], gold)
     print(f"StreamBatchDecoder 34-band: {LANES} lanes x {GOLDEN_FRAMES} "
           f"frames (first run) in {wall:.3f} s; K1 {launches}; lanes 0-1 vs "
@@ -1972,7 +2176,8 @@ def graft_frame(K) -> dict:
         pcm, _ = heaac_graph.heaac_frame_compact(
             core, sc, pc, heaac_graph.init_compact_state(B, dev))
         if "card" not in pcms:
-            launches = dict(K.launches)
+            launches, rows = counts(K)
+            rows_check("phase 13 (g)", rows, {})
         pcms["card" if "card" not in pcms else "cpu"] = pcm.cpu().numpy()
     with np.load(tool.PLAN_GOLDEN) as z:
         gold = z["graft/pcm"]
@@ -2002,7 +2207,7 @@ def bench_entry(K, card: str, main4: dict) -> int:
     from heaac_tpu_torch import bench
     reset_launches(K)
     line, outs = bench.run(LANES, BENCH_REPS)
-    launches = dict(K.launches)
+    launches, rows = counts(K)
     peak_mem = torch.cuda.max_memory_allocated()
     T = outs[0].shape[0]
     ngroups = -(-LANES // line["group"])
@@ -2019,6 +2224,7 @@ def bench_entry(K, card: str, main4: dict) -> int:
     if T != 50 or launches != {30: decodes * T, 50: 0}:
         raise SystemExit(f"phase 14: K1 launched {launches} for {decodes} "
                          f"decodes of {T} frames of 20-band PS")
+    rows_check("phase 14", rows, {0: decodes * T})
     peak = outs[0].abs().amax(dim=(0, 2, 3)).cpu().numpy()
     if not (peak > 0).all():
         raise SystemExit(f"phase 14: silent lanes {np.flatnonzero(peak == 0)}")
@@ -2041,6 +2247,7 @@ def main() -> None:
     from heaac_tpu_torch import native
     from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
     from heaac_tpu_torch.ops import ps_decorrelate as K
+    from heaac_tpu_torch.ops import qwire_rows
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2056,17 +2263,19 @@ def main() -> None:
         t_phase = now
 
     # ---- 2. build -----------------------------------------------------------
-    ys = Yardstick(build_all(K, native))
+    ys = Yardstick(build_all(K, qwire_rows, native))
     phase_done("2 build")
 
-    # ---- 3. kernel check ----------------------------------------------------
+    # ---- 3. kernel checks ---------------------------------------------------
     krows, worst = kernel_check(K, ys)
-    phase_done("3 kernel check")
-
-    # ---- 4. main path -------------------------------------------------------
     bench = [open(os.path.join(REPO, "benchdata",
                                f"heaac_bench_stream_{i}.aac"), "rb").read()
              for i in range(8)]
+    files = read_streams()
+    rows_entry = rows_kernel_check(card, bench, files["he_v1s"])
+    phase_done("3 kernel checks")
+
+    # ---- 4. main path -------------------------------------------------------
     streams = [bytes(bench[i % 8]) for i in range(LANES)]
     dec = QwirePipelinedDecoder(streams, group_streams=LANES)
     if dec.device.type != "cuda":
@@ -2079,8 +2288,10 @@ def main() -> None:
     outs = dec.decode()
     wall = time.perf_counter() - t0
     launches = K.launches[30]
+    rows = counts(K)[1]
     pcm = outs[0].cpu().numpy()                    # [T, L, 2, 2048] int16
     T = pcm.shape[0]
+    rows_check("phase 4", rows, {0: T})
     audio_s = dec.audio_seconds()
     main_rt = audio_s / wall
     print(f"main path: {LANES} lanes x {T} frames, audio {audio_s:.3f} s, "
@@ -2111,7 +2322,6 @@ def main() -> None:
     phase_done("4 main path")
 
     # ---- 5. mixed batch through decode_batch -------------------------------
-    files = read_streams()
     mixed = mixed_batch(K, card, files)
     phase_done("5 mixed batch")
 
@@ -2289,7 +2499,17 @@ def main() -> None:
                                         "frames: warm-up, device-only, FLOP "
                                         f"count and {BENCH_REPS} timed "
                                         "decodes",
-        "b1": k1_b1}]}))
+        "b1": k1_b1}, {
+        "name": "qwire_rows", "route": "cuda",
+        "source": "heaac_tpu_torch/csrc/qwire_rows.cu",
+        "replaces": "heaac_tpu_torch/ops/sbr_huff.py decode_sbr_rows + "
+                    "heaac_tpu_torch/ops/ps_huff.py decode_ps_region "
+                    "(plain torch ops; no pallas_call)",
+        "launches": ROWS_SEEN["phase 4"][0], **rows_entry,
+        "library_ms": None, "launches_by_path": ROWS_SEEN}]}))
+    if ROWS_WRONG:
+        raise SystemExit(f"row-kernel launches differ from the qwire frame "
+                         f"steps (path, launches, expected): {ROWS_WRONG}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

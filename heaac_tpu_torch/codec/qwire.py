@@ -6,7 +6,8 @@ is34 in (0, 1) or -1 (the band-mode flip scan: each lane's mode per
 frame from side bit 6, returned as ``pc["m34"]``), rows_pair 0 or 1 (1: the coupled-CPE raw SBR rows of
 stereo HE-AAC v1): per-frame side info + carried state -> core meta,
 the dense SBR plan (sbr_dequant / mapping / chirp by LUT gathers), and
-the PS codes (raw-bits row decode via ops/ps_huff + band remap).  The
+the PS codes (raw-bits row decode via ops/ps_huff + band remap); the
+two row decoders run as one call of ``ops/qwire_rows.decode_rows``.  The
 wire layout constants live in ``host.py``.  Every integer output and
 carry matches the JAX code exactly.
 
@@ -28,7 +29,7 @@ from ..host import (E, H_FLAGS, H_KX1, H_LIMG, H_M1, H_N0, H_N1, H_NLIM,
                     RAW_MAX, SIDE_HEAD, SIDE_MAX, T_ESC1, T_ESC2, T_PAIR0,
                     T_QUAD0, T_QUAD_END, T_RAW0, T_SETSF, T_SFD_BASE, T_SGL0,
                     T_ZRUN0, ZRUN_MAX)
-from ..ops import ps_huff, sbr_huff
+from ..ops import ps_huff, qwire_rows, sbr_huff
 from . import compact_plan as CP
 
 
@@ -318,11 +319,53 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0,
     rows_live = (rows_on > 0) & (rr_rbits > 0)
     region = gat(side, ((rr_off + 2)[:, None] + ar(sbr_huff.RW))
                  .clamp(0, SIDE_MAX - 1))
-    ec_r, pc_r, qc_r, qpc_r, _rows_ok, sbrrows_new = \
-        sbr_huff.decode_sbr_rows(
-            region, rr_phase, rr_rbits, ne=ne, nnoise=nnoise, frbits=frbits,
-            n0=n0, n1=n1, nq=nq, ampres=ampres, active=rows_live,
-            carry=carry["sbrrows"], coupled=coupled, pair=bool(rows_pair))
+    after_noise = torch.where(rows_on > 0, rr_off + 2 + rr_bytes,
+                              after_noise)
+    ah_off = after_noise
+    def ahb(j):
+        return gat(side, (ah_off + j)[:, None].clamp(0, SIDE_MAX - 1))
+
+    ah_lo = (ahb(0) | (ahb(1) << 8) | (ahb(2) << 16)) * addharm[:, None]
+    ah_hi = (ahb(3) | (ahb(4) << 8) | (ahb(5) << 16)) * addharm[:, None]
+    ps_off = after_noise + 6 * addharm
+
+    # ---- PS head and region (ops/ps_huff; wire v5) --------------------------
+    pg = lambda off, n: gat(side, (off[:, None] + ar(n)).clamp(  # noqa
+        0, SIDE_MAX - 1))
+    psb = pg(ps_off, PS_HEAD)
+    pb0 = psb[:, PS_B0]
+    penv = (pb0 & 7) * ps_on
+    ps_hdr = ((pb0 >> 3) & 1) * ps_on
+    pquant = ((pb0 >> 4) & 1) * ps_on
+    pknd = psb[:, PS_KND] * ps_on
+    enable_ext = (pknd >> 4) & 1
+    bitoff = (pknd >> 5) & 7
+    nipd = (psb[:, PS_NIPD] * ps_on).clamp(0, 17)
+    nb10 = psb[:, PS_NE] * ps_on
+    ne_pre = nb10 & 7
+    fresh = (nb10 >> 3) & 1
+    rbits = (psb[:, PS_RB] * ps_on) | (((nb10 >> 4) & 15) << 8)
+    live = ps_on * fresh
+    nr_iid = Lt["ps_width"][pknd & 3]
+    nr_icc = Lt["ps_width"][(pknd >> 2) & 3]
+    pregion = pg(ps_off + PS_HEAD, ps_huff.RW)
+
+    # both regions' rows in one call (one kernel launch on the card)
+    (ec_r, pc_r, qc_r, qpc_r, _rows_ok, sbrrows_new), \
+        (iid_n, icc_n, ipd_n, opd_n, pd_on, ok_now, psc2) = \
+        qwire_rows.decode_rows(
+            dict(region=region, phase=rr_phase, rbits=rr_rbits, ne=ne,
+                 nnoise=nnoise, frbits=frbits, n0=n0, n1=n1, nq=nq,
+                 ampres=ampres, active=rows_live, carry=carry["sbrrows"],
+                 coupled=coupled),
+            dict(region=pregion, start_off=bitoff * live, rbits=rbits * live,
+                 enable_iid=(nr_iid > 0).long() * live, iq=pquant * live,
+                 nr_iid=nr_iid * live,
+                 enable_icc=(nr_icc > 0).long() * live,
+                 nr_icc=nr_icc * live, enable_ext=enable_ext * live,
+                 ne_pre=ne_pre * live, penv=penv * live, nipd=nipd * live,
+                 header=ps_hdr * live, carry=carry["ps"]),
+            pair=bool(rows_pair))
     ec_w = ec_r & 0xFF
     qc_w = qc_r & 0xFF
     rl3 = rows_live[:, None, None]
@@ -345,15 +388,6 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0,
     else:
         pr_last = carry["sbr_pc"]
         qpr_last = carry["sbr_qpc"]
-    after_noise = torch.where(rows_on > 0, rr_off + 2 + rr_bytes,
-                              after_noise)
-    ah_off = after_noise
-    def ahb(j):
-        return gat(side, (ah_off + j)[:, None].clamp(0, SIDE_MAX - 1))
-
-    ah_lo = (ahb(0) | (ahb(1) << 8) | (ahb(2) << 16)) * addharm[:, None]
-    ah_hi = (ahb(3) | (ahb(4) << 8) | (ahb(5) << 16)) * addharm[:, None]
-    ps_off = after_noise + 6 * addharm
 
     env_lut, c1_lut, c2_lut = Lt["env"], Lt["env_c1"], Lt["env_c2"]
     ar3 = ampres[:, None, None] > 0
@@ -520,33 +554,6 @@ def expand_frame(heap, rec, carry, is34: int = 0, rows_pair: int = 0,
         xlow_old=xlow_old, xlow_new=xlow_new, scatter_m=scatter_m)
 
     # ---- PS block -> pc_i / pc_b (wire v5) ----------------------------------
-    pg = lambda off, n: gat(side, (off[:, None] + ar(n)).clamp(  # noqa
-        0, SIDE_MAX - 1))
-    psb = pg(ps_off, PS_HEAD)
-    pb0 = psb[:, PS_B0]
-    penv = (pb0 & 7) * ps_on
-    ps_hdr = ((pb0 >> 3) & 1) * ps_on
-    pquant = ((pb0 >> 4) & 1) * ps_on
-    pknd = psb[:, PS_KND] * ps_on
-    enable_ext = (pknd >> 4) & 1
-    bitoff = (pknd >> 5) & 7
-    nipd = (psb[:, PS_NIPD] * ps_on).clamp(0, 17)
-    nb10 = psb[:, PS_NE] * ps_on
-    ne_pre = nb10 & 7
-    fresh = (nb10 >> 3) & 1
-    rbits = (psb[:, PS_RB] * ps_on) | (((nb10 >> 4) & 15) << 8)
-    live = ps_on * fresh
-    nr_iid = Lt["ps_width"][pknd & 3]
-    nr_icc = Lt["ps_width"][(pknd >> 2) & 3]
-    pregion = pg(ps_off + PS_HEAD, ps_huff.RW)
-    iid_n, icc_n, ipd_n, opd_n, pd_on, ok_now, psc2 = \
-        ps_huff.decode_ps_region(
-            pregion, start_off=bitoff * live, rbits=rbits * live,
-            enable_iid=(nr_iid > 0).long() * live, iq=pquant * live,
-            nr_iid=nr_iid * live, enable_icc=(nr_icc > 0).long() * live,
-            nr_icc=nr_icc * live, enable_ext=enable_ext * live,
-            ne_pre=ne_pre * live, penv=penv * live, nipd=nipd * live,
-            header=ps_hdr * live, carry=carry["ps"])
     ok_eff = torch.where(fresh > 0, ok_now, carry["ps"]["ps_ok"]).clamp(
         0, 1) * ps_on
     ipdopd_on = torch.where(fresh > 0, pd_on, carry["ps"]["pd_enable"]

@@ -27,9 +27,10 @@ graphs' memory pools stay bounded when lane counts vary.
 
 A CPU device, and a scan of one step, run every step eagerly.  Counters:
 ``scan.graph.captures``, ``scan.graph.replays``,
-``scan.graph.eager_steps``.  K1's ``launches`` keeps counting kernel
-launches: a capture takes back the Python calls it made and records how
-many launches its graph holds, and each replay adds them.
+``scan.graph.eager_steps``.  The hand-written kernels' ``launches``
+(K1's and the row decoders') keep counting kernel launches: a capture
+takes back the Python calls it made and records how many launches its
+graph holds, and each replay adds them.
 """
 from __future__ import annotations
 
@@ -38,10 +39,12 @@ import threading
 
 import torch
 
-from ..ops import ps_decorrelate
+from ..ops import ps_decorrelate, qwire_rows
 from ..utils.trace import count, span
 
 GRAPHS_PER_DEVICE = 4
+# the kernels' launch counts, {key: launches} each, that a graph replays
+LAUNCHES = (ps_decorrelate.launches, qwire_rows.launches)
 
 _graphs: collections.OrderedDict = collections.OrderedDict()  # oldest first
 _lock = threading.Lock()
@@ -84,18 +87,22 @@ class _StepGraph:
         self.heap_hi = torch.zeros((), dtype=torch.long, device=dev)
         self.lock = threading.Lock()     # one scan at a time on the buffers
         self.graph = torch.cuda.CUDAGraph()
-        k1 = dict(ps_decorrelate.launches)
+        before = [dict(c) for c in LAUNCHES]
         # thread_local: the parse worker waits on upload events meanwhile;
         # a stream of this card (the default capture stream is the first
         # capture's card's)
         with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(dev),
                               capture_error_mode="thread_local"):
             self.out = self._step(step)
-        self.k1 = {napb: n - k1[napb]
-                   for napb, n in ps_decorrelate.launches.items()}
-        for napb, n in self.k1.items():
-            ps_decorrelate.launches[napb] -= n
+        self.launches = [{k: n - b[k] for k, n in c.items()}
+                         for c, b in zip(LAUNCHES, before)]
+        self._add_launches(-1)
         count("scan.graph.captures")
+
+    def _add_launches(self, sign: int) -> None:
+        for c, held in zip(LAUNCHES, self.launches):
+            for k, n in held.items():
+                c[k] += sign * n
 
     def _step(self, step):
         """The captured work: one step on the buffers, its new carry
@@ -124,8 +131,7 @@ class _StepGraph:
         self.coeffs.copy_(coeffs)
         self.rec.copy_(rec)
         self.graph.replay()
-        for napb, n in self.k1.items():
-            ps_decorrelate.launches[napb] += n
+        self._add_launches(1)
         count("scan.graph.replays")
         return self.out
 

@@ -25,7 +25,8 @@ host; gloo all-reduces a CPU tensor and also serves ranks that share a
 card.  The last line printed is the global metrics as JSON, with
 ``process_id`` and ``num_devices`` (the all-reduced count of devices
 that decoded, one per rank); the line before it gives the rank's device,
-its K1 launches per napb and its decode seconds.
+its K1 launches per napb, its row-decoder kernel's launches per ``pair``
+and its decode seconds.
 
 Differences from the JAX package: the process group gets its address,
 size and rank from the arguments (``--cpu-devices``, XLA's virtual
@@ -47,7 +48,7 @@ import torch.distributed as dist
 
 from ..codec.batch import QwirePipelinedDecoder
 from ..device import resolve
-from ..ops import ps_decorrelate
+from ..ops import ps_decorrelate, qwire_rows
 from ..utils.trace import count, span
 
 
@@ -139,14 +140,16 @@ def main(argv=None) -> int:
         paths = sorted(Path(args.streams_dir).glob("*.aac"))
         shard = [p.read_bytes() for i, p in enumerate(paths)
                  if i % args.num_processes == args.process_id]
-        for napb in ps_decorrelate.launches:
-            ps_decorrelate.launches[napb] = 0
+        for counter in (ps_decorrelate.launches, qwire_rows.launches):
+            for key in counter:
+                counter[key] = 0
         info: dict = {}
         out = decode_shard_and_reduce(shard, dev, info_out=info)
         print(json.dumps({"process_id": args.process_id,
                           "device": str(dev), "backend": backend,
                           "streams": len(shard),
                           "k1_launches": ps_decorrelate.launches,
+                          "rows_launches": qwire_rows.launches,
                           "decode_s": info["decode_s"]}), flush=True)
         out["process_id"] = args.process_id
         out["num_devices"] = info["num_devices"]

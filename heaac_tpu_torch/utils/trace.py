@@ -7,15 +7,17 @@ get_bits.h:620-663).  Here:
 
 * ``span(name, **attrs)`` — a named stretch of the program at a layer
   boundary (``decode_batch`` -> ``bucket`` -> ``group.*`` -> ``scan.step``
-  -> ``expand_frame`` / ``expand_ps`` / ``frame_graph`` -> ``k1``;
+  -> ``expand_frame`` (-> ``qwire_rows``) / ``expand_ps`` /
+  ``frame_graph`` -> ``k1``;
   ``decode_frame`` -> ``frame.parse`` / ``prep`` / ``issue`` /
   ``download``).  Spans are kept only inside ``recording()``, the one
   switch; outside it ``span`` returns the shared ``NO_SPAN`` after one
   module-level check, so it allocates no record, never synchronizes the
   card and launches nothing.
 * ``count(name, n)`` — counters at the same boundaries, always kept
-  (``counters``); ``snapshot()`` adds kernel K1's launches from
-  ``ops/ps_decorrelate.launches``.
+  (``counters``); ``snapshot()`` adds the hand-written kernels'
+  launches from ``ops/ps_decorrelate.launches`` (K1) and
+  ``ops/qwire_rows.launches`` (the row decoders).
 * ``device_trace(logdir, device)`` — a ``torch.profiler`` trace of any
   decode region, written as a Chrome trace (``logdir/trace.json``,
   viewable in chrome://tracing or Perfetto) with the program's spans
@@ -151,13 +153,16 @@ def count(name: str, n=1) -> None:
 
 def snapshot() -> dict:
     """The counters, with K1's launches by napb (``k1.launches.<napb>``)
-    where the kernel's module is loaded."""
+    and the row decoders' by pair (``qwire_rows.launches.<pair>``) where
+    the kernels' modules are loaded."""
     with _count_lock:
         out = dict(counters)
-    k1 = sys.modules.get("heaac_tpu_torch.ops.ps_decorrelate")
-    if k1 is not None:
-        out.update((f"k1.launches.{napb}", n)
-                   for napb, n in k1.launches.items())
+    for prefix, mod in (("k1", "ps_decorrelate"),
+                        ("qwire_rows", "qwire_rows")):
+        m = sys.modules.get(f"heaac_tpu_torch.ops.{mod}")
+        if m is not None:
+            out.update((f"{prefix}.launches.{k}", n)
+                       for k, n in m.launches.items())
     return out
 
 

@@ -194,3 +194,77 @@ def port_trace(n_streams: int, T: int, kind: str = "he20"):
         frames.append(dict(core_meta=n(core_meta), plan=n(plan), pc=n(pc),
                            ps_plan=n(ps_plan)))
     return frames
+
+
+def row_decoder_inputs(B: int, seed: int, pair: bool, device="cpu",
+                       wild: bool = False):
+    """Fuzzed arguments of ``ops/qwire_rows.decode_rows`` -> (sbr, ps):
+    random region bytes (dense, sparse, or runs of ones, so that rows
+    decode, overrun their windows and meet codes that are not in a
+    table), control fields drawn as tests/test_torch_sbr_huff.py and
+    tests/test_torch_ps_huff.py draw them, and random carries; ``wild``
+    widens the controls to every value the wire's bit fields can hold
+    (ne 0-7, nnoise 0-3, bands 0-60, ...)."""
+    rng = np.random.default_rng(seed)
+    i = lambda lo, hi: rng.integers(lo, hi + 1, B)  # noqa: E731
+    pick = lambda vals: rng.choice(vals, B)  # noqa: E731
+
+    def region(nbytes):
+        kind = rng.integers(0, 3)
+        r = rng.integers(0, 256, (B, nbytes))
+        if kind == 1:
+            r = r * (rng.random((B, nbytes)) < 0.1)
+        elif kind == 2:
+            r = np.full((B, nbytes), 255) * (rng.random((B, nbytes)) < 0.5)
+        return r
+
+    n0 = i(1, 25)
+    sbr = dict(phase=i(0, 7), rbits=i(0, 8191) if wild else i(0, 640 * 8),
+               ne=i(0, 7) if wild else i(0, 5),
+               nnoise=i(0, 3) if wild else i(1, 2), frbits=i(0, 31),
+               n0=i(0, 60) if wild else n0,
+               n1=i(0, 60) if wild else np.minimum(n0 * 2 - i(0, 1), 48),
+               nq=i(0, 7) if wild else i(1, 5), ampres=i(0, 1),
+               coupled=(rng.random(B) < 0.6) * int(pair),
+               region=region(640))
+    sbr = {k: t(v) for k, v in sbr.items()}
+    sbr["active"] = t(rng.random(B) < 0.8, torch.bool)
+    sbr["carry"] = dict(env_last=t(rng.integers(0, 60, (B, 2, 48))),
+                        noise_last=t(rng.integers(0, 30, (B, 2, 5))),
+                        fr_last=t(rng.integers(0, 2, (B, 2))))
+    widths = [0, 10, 20, 34] if wild else [10, 20, 34]
+    ne_pre = i(0, 7) if wild else i(0, 4)
+    ps = dict(start_off=i(0, 7), rbits=i(0, 4095) if wild else i(0, 288 * 8),
+              enable_iid=i(0, 1), iq=i(0, 1), nr_iid=pick(widths),
+              enable_icc=i(0, 1), nr_icc=pick(widths), enable_ext=i(0, 1),
+              ne_pre=ne_pre,
+              penv=i(0, 7) if wild else np.minimum(ne_pre + i(0, 1), 5),
+              nipd=pick([0, 5, 11, 17] if wild else [5, 11, 17]),
+              header=i(0, 1), region=region(288))
+    ps = {k: t(v) for k, v in ps.items()}
+    ps["carry"] = dict(
+        iid_last=t(rng.integers(-15, 16, (B, 34))),
+        icc_last=t(rng.integers(0, 8, (B, 34))),
+        ipd_full=t(rng.integers(0, 8, (B, 5, 17))),
+        opd_full=t(rng.integers(0, 8, (B, 5, 17))),
+        pd_enable=t(i(-1, 3) if wild else i(0, 1)),
+        penv_prev=t(i(-2, 8) if wild else i(0, 5)), ps_ok=t(i(0, 1)))
+    move = lambda d: {k: move(v) if isinstance(v, dict)  # noqa: E731
+                      else v.to(device) for k, v in d.items()}
+    return move(sbr), move(ps)
+
+
+def leaves(tree) -> list:
+    """The tensors of nested tuples / dicts, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def lanes(tree, idx):
+    """A nested dict of [B, ...] tensors at lanes ``idx``."""
+    if isinstance(tree, dict):
+        return {k: lanes(v, idx) for k, v in tree.items()}
+    return tree.index_select(0, idx)

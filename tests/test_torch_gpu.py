@@ -16,7 +16,10 @@ plan-record decoders: ``StreamBatchDecoder`` (compact and dense) and
 and ``ShardedStreamBatchDecoder`` with two shards on one card against
 the unsharded decode, K1 once a frame (per shard) at napb 30; the qwire
 scan's CUDA-graph replay of its frame step against the same frames
-stepped eagerly, chained scans, and the graph cache's second call.
+stepped eagerly, chained scans, and the graph cache's second call; the
+qwire step's row-decoder kernel against the plain row decoders on fuzzed
+regions and on the regions real streams give, and ``decode_batch`` with
+and without it.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -37,10 +40,12 @@ from heaac_tpu_torch.codec.batch import (PipelinedStreamBatchDecoder,
 from heaac_tpu_torch.codec.planner import parse_stream_qwire
 from heaac_tpu_torch.host import R_W1, spec_static_args, split_adts_stream
 from heaac_tpu_torch.ops import ps_decorrelate as K
+from heaac_tpu_torch.ops import qwire_rows
 from heaac_tpu_torch.parallel.sharding import (ShardedQwireDecoder,
                                                ShardedStreamBatchDecoder)
 from heaac_tpu_torch.utils import trace
-from test_torch_common import bench_streams, golden_tool, streams_of
+from test_torch_common import (bench_streams, golden_tool, lanes, leaves,
+                               row_decoder_inputs, streams_of)
 
 pytestmark = pytest.mark.gpu
 NAMES = ("power", "in_re", "in_im", "trans", "ap", "ag", "qf")
@@ -378,12 +383,14 @@ def _scan(wire, lo: int, hi: int, carry=None):
 
 
 def _counted(fn):
-    """(fn(), the scan.graph counters and K1's launches that moved)."""
+    """(fn(), the scan.graph counters and the kernels' launches that
+    moved)."""
     before = trace.snapshot()
     out = fn()
     after = trace.snapshot()
     return out, {k: after[k] - before.get(k, 0) for k in after
-                 if k.startswith(("scan.graph.", "k1.launches."))
+                 if k.startswith(("scan.graph.", "k1.launches.",
+                                  "qwire_rows.launches."))
                  and after[k] != before.get(k, 0)}
 
 
@@ -426,6 +433,7 @@ def test_graph_scan_equals_eager_steps(cuda, kind, n, T):
     assert eager <= 1 and k["scan.graph.replays"] == T - eager
     assert k.get("scan.graph.captures", 0) == eager
     assert k["k1.launches.30"] == T
+    assert k[f"qwire_rows.launches.{wire[4].get('rows_pair', 0)}"] == T
     carry, ref = _eager_scan(wire, T)
     assert wire[4].get("rows_pair", 0) == (kind == "he_v1s")
     assert (wire[3] is not None) == (kind == "cce_after")
@@ -450,6 +458,102 @@ def test_graph_scan_chains_and_replays_from_the_cache(cuda):
     assert torch.equal(torch.cat([p1, p2]), whole)
     (c3, again), k = _counted(lambda: _scan(wire, 0, T))
     assert torch.equal(again, whole)
-    assert k == {"scan.graph.replays": T, "k1.launches.30": T}
+    assert k == {"scan.graph.replays": T, "k1.launches.30": T,
+                 "qwire_rows.launches.0": T}
     assert all(torch.equal(a, b) for a, b in zip(_leaves(c2),
                                                  _leaves(c3)))
+
+
+def _rows_equal(sbr, ps, pair: bool) -> None:
+    """The row-decoder kernel against the plain decoders on the same
+    card tensors, bit for bit, with one launch counted."""
+    before = dict(qwire_rows.launches)
+    got = qwire_rows.decode_rows(sbr, ps, pair)
+    assert qwire_rows.launches == {**before, pair: before[pair] + 1}
+    want = qwire_rows.decode_rows_plain(sbr, ps, pair)
+    torch.cuda.synchronize()
+    assert len(leaves(got)) == len(leaves(want)) == 21
+    for k, (a, b) in enumerate(zip(leaves(got), leaves(want))):
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("pair,wild", [(False, False), (True, False),
+                                       (False, True), (True, True)],
+                         ids=["sbr", "pair", "sbr-wild", "pair-wild"])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_qwire_rows_kernel_matches_plain_on_fuzzed_regions(cuda, B, pair,
+                                                           wild):
+    """Random region bytes and controls: rows that decode, overrun their
+    windows, meet codes no table holds and read past the region's end
+    (clamped), on every control value the wire's fields can hold."""
+    for seed in range(3):
+        sbr, ps = row_decoder_inputs(B, seed=100 * B + 10 * seed + 2 * pair
+                                     + wild, pair=pair, device=cuda,
+                                     wild=wild)
+        _rows_equal(sbr, ps, pair)
+
+
+def _stream_rows(kind: str, n: int, T: int, dev) -> list:
+    """The (sbr, ps, pair) arguments ``expand_frame`` gives the row
+    decoders over T frames of n streams of a kind, stepped eagerly on the
+    card with the plain decoders."""
+    seen = []
+
+    def record(sbr, ps, pair):
+        seen.append((sbr, ps, pair))
+        return qwire_rows.decode_rows_plain(sbr, ps, pair)
+
+    real = qwire_rows.decode_rows
+    qwire_rows.decode_rows = record
+    try:
+        _eager_scan(_wire(kind, n, T, dev), T)
+    finally:
+        qwire_rows.decode_rows = real
+    assert len(seen) == T
+    return seen
+
+
+@pytest.mark.parametrize("kind,n", [("he20", 8), ("he_v1s", 4)])
+def test_qwire_rows_kernel_matches_plain_on_stream_regions(cuda, kind, n):
+    """The regions and controls of 16 frames of real streams: 20-band
+    HE-AAC v2, and stereo HE-AAC v1's coupled pairs (pair=True), at 1,
+    8 and 64 lanes (the streams' lanes tiled)."""
+    frames = _stream_rows(kind, n, 16, cuda)
+    assert {pair for _, _, pair in frames} == {kind == "he_v1s"}
+    assert sum(int(sbr["active"].sum()) for sbr, _, _ in frames) > 0
+    assert sum(int((ps["nr_iid"] > 0).sum()) for _, ps, _ in frames) > 0 \
+        or kind == "he_v1s"
+    for B in (1, 8, 64):
+        for sbr, ps, pair in frames:
+            L = sbr["region"].shape[0]
+            idx = torch.arange(B, device=cuda) % L
+            _rows_equal(lanes(sbr, idx), lanes(ps, idx), pair)
+
+
+def test_decode_batch_with_and_without_the_row_kernel(cuda, monkeypatch):
+    """A short decode_batch on the card (four 20-band and two stereo
+    streams, 16 frames) under the step graph gives the same PCM with the
+    row-decoder kernel as with the plain row decoders; the kernel counts
+    one launch a frame step, the plain decoders none."""
+    streams = [b"".join(split_adts_stream(d)[:16])
+               for d in streams_of("he20", 4) + streams_of("he_v1s", 2)]
+
+    def run():
+        # a fresh graph cache: a cached graph would replay the other route
+        monkeypatch.setattr(step_graph, "_graphs",
+                            step_graph.collections.OrderedDict())
+        return _counted(lambda: decode_batch(streams))
+
+    got, k = run()
+    monkeypatch.setattr(qwire_rows, "decode_rows",
+                        qwire_rows.decode_rows_plain)
+    want, k_plain = run()
+    steps = k.get("scan.graph.eager_steps", 0) + k["scan.graph.replays"]
+    assert k["scan.graph.replays"] > 0 and k_plain["scan.graph.replays"] > 0
+    assert k["qwire_rows.launches.0"] > 0 and k["qwire_rows.launches.1"] > 0
+    assert k["qwire_rows.launches.0"] + k["qwire_rows.launches.1"] == steps
+    assert not any(key.startswith("qwire_rows.") for key in k_plain)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and int(a.abs().max()) > 1000
+        assert torch.equal(a, b)

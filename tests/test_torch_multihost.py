@@ -63,7 +63,8 @@ def test_two_process_gloo_decode_and_reduce(tmp_path):
         assert info.pop("decode_s") > 0
         assert info == {"process_id": rank, "device": "cpu",
                         "backend": "gloo", "streams": 2,
-                        "k1_launches": {"30": 0, "50": 0}}
+                        "k1_launches": {"30": 0, "50": 0},
+                        "rows_launches": {"0": 0, "1": 0}}
         assert glob["process_id"] == rank and glob["num_devices"] == 2
         assert glob["process_frames"] == jax_frames[rank]
     assert {k: v for k, v in glob0.items() if k not in (

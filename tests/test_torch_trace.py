@@ -2,25 +2,29 @@
 on the CPU: nothing is recorded outside ``recording()``; inside it, a
 ``decode_batch`` call gives the span tree decode_batch -> probe / bucket
 -> group.parse (on the parse worker) / parse_wait / upload / scan ->
-scan.prologue / scan.step -> expand_frame / expand_ps / frame_graph ->
-k1, with the bucket's attributes equal to its ``bucket_stats`` record;
+scan.prologue / scan.step -> expand_frame (-> qwire_rows) / expand_ps /
+frame_graph -> k1, with the bucket's attributes equal to its ``bucket_stats`` record;
 ``decode_frame`` gives its four stages; a ``multihost`` rank's call
 gives multihost.decode (with the group spans) -> multihost.pcm, then
 multihost.allreduce, and its three counters; spans land on the
-profiler's clock; on the CPU the scan steps eagerly (no CUDA graph), and
-the PS row decoder's table comes from the per-device cache."""
+profiler's clock; on the CPU the scan steps eagerly (no CUDA graph); a
+step graph keeps the hand-written kernels' launch counts across its
+capture and replays (a stand-in graph on the CPU), and the PS row
+decoder's table comes from the per-device cache."""
 import collections
+import contextlib
 import functools
 import logging
 
 import numpy as np
+import pytest
 import torch
 from torch.autograd.profiler import profile, record_function
 
 from heaac_tpu_torch import Decoder, decode_batch
-from heaac_tpu_torch.codec import batch
+from heaac_tpu_torch.codec import batch, step_graph
 from heaac_tpu_torch.host import split_adts_stream
-from heaac_tpu_torch.ops import ps_huff
+from heaac_tpu_torch.ops import ps_decorrelate, ps_huff, qwire_rows
 from heaac_tpu_torch.utils import trace
 from test_torch_common import streams_of
 
@@ -79,6 +83,7 @@ def test_decode_batch_span_tree(monkeypatch, caplog):
         ("scan.prologue", "group.scan"): groups,
         ("scan.step", "group.scan"): steps,
         ("expand_frame", "scan.step"): steps,
+        ("qwire_rows", "expand_frame"): steps,
         ("expand_ps", "scan.step"): steps,
         ("frame_graph", "scan.step"): steps, ("k1", "frame_graph"): steps}
     root = next(s for s in rec.spans if s.name == "decode_batch")
@@ -209,6 +214,44 @@ def test_cpu_scan_steps_eagerly():
     assert graph == {"scan.graph.eager_steps": FRAMES}
     assert [s.attrs for s in rec.spans if s.name == "scan.step"] == \
         [{}] * FRAMES
+
+
+@pytest.mark.parametrize("kernel,key,counter", [
+    (ps_decorrelate, 30, "k1.launches.30"),
+    (qwire_rows, 0, "qwire_rows.launches.0"),
+    (qwire_rows, 1, "qwire_rows.launches.1")], ids=["k1", "rows", "rows-pair"])
+def test_step_graph_keeps_launch_counts(monkeypatch, kernel, key, counter):
+    """A step graph's capture takes back the launches its Python calls
+    counted, and each replay adds the launches the graph holds, so a
+    kernel's counter reads its launches on the card whether a step ran
+    eagerly or from a graph (a stand-in for the CUDA graph here: the
+    step runs once, at capture)."""
+    class Graph:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **kw: contextlib.nullcontext())
+
+    def step(coeffs, rec, heap, carry, heap_hi=None):
+        kernel.launches[key] += 2
+        return coeffs + 1, dict(x=carry["x"] + 1)
+
+    def moved(before):
+        return {k: v - before.get(k, 0) for k, v in trace.snapshot().items()
+                if v != before.get(k, 0)}
+
+    before = trace.snapshot()
+    z = torch.zeros(3)
+    g = step_graph._StepGraph(step, z, z, torch.zeros(5), 8,
+                              dict(x=torch.zeros(2)))
+    assert moved(before) == {"scan.graph.captures": 1}
+    for _ in range(3):
+        g.replay(z, z)
+    assert moved(before) == {"scan.graph.captures": 1,
+                             "scan.graph.replays": 3, counter: 6}
 
 
 def test_ps_huff_table_from_the_device_cache(monkeypatch):
