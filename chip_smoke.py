@@ -197,9 +197,7 @@ Phases (any failure exits non-zero):
      of the port's CPU run and lanes 0-1 of the JAX golden over 16
      frames (tests/data/plan_golden_jax.npz), all 512 lanes within 2 LSB
      of the qwire PCM (this phase's and phase 4's); realtime and ms a
-     frame of each run beside phase 4's; (c) PipelinedStreamBatchDecoder
-     over the same streams in two groups of 256 (a warm-up, then a timed
-     run): K1 50 per group, within 1 LSB of (a); (d) StreamBatchDecoder
+     frame of each run beside phase 4's; (d) StreamBatchDecoder
      over 512 lanes tiled from the 8 34-band streams, 16 frames: K1
      exactly 16 at napb 50, lanes 0-1 within 2 LSB of the golden; (e)
      BatchDecoder(batch=512) on bench stream 0 (warmup, then a timed run:
@@ -1953,10 +1951,9 @@ def lsb(a, b) -> int:
 
 def plan_decoders(K, card: str, bench: list, streams: list,
                   main4: dict) -> dict:
-    """Phase 13 (a)-(c) and (e)-(f): the plan-record decoders over phase
+    """Phase 13 (a), (b), (e) and (f): the plan-record decoders over phase
     4's streams.  Returns K1's launches of each run and the PCM of (a)."""
     from heaac_tpu_torch.codec.batch import (BatchDecoder,
-                                             PipelinedStreamBatchDecoder,
                                              QStreamBatchDecoder,
                                              QwirePipelinedDecoder,
                                              StreamBatchDecoder)
@@ -2049,29 +2046,6 @@ def plan_decoders(K, card: str, bench: list, streams: list,
     out.update(a=k1["compact"], b=k1["dense"], pcm_a=a)
     del decs, pcms
     torch.cuda.empty_cache()
-
-    # (c) packed records, two groups of GROUP_LANES
-    dec = PipelinedStreamBatchDecoder(streams, group_streams=GROUP_LANES)
-    t0 = time.perf_counter()
-    dec.decode()                                   # warm-up
-    warm_s = time.perf_counter() - t0
-    reset_launches(K)
-    t0 = time.perf_counter()
-    outs = dec.decode()
-    wall = time.perf_counter() - t0
-    out["c"], rows = counts(K)
-    rows_check("phase 13 (c)", rows, {})
-    audio_s = dec.audio_seconds()
-    d = max(lsb(o.cpu().numpy(), a[:, g * GROUP_LANES:(g + 1) * GROUP_LANES])
-            for g, o in enumerate(outs))
-    print(f"PipelinedStreamBatchDecoder: {LANES} streams in groups of "
-          f"{GROUP_LANES}, {T} frames, wall {wall:.3f} s (warm-up "
-          f"{warm_s:.3f} s), realtime {audio_s / wall:.1f}x, "
-          f"{1e3 * wall / T:.1f} ms a frame; K1 {out['c']}; vs (a) max {d} "
-          "LSB", flush=True)
-    if out["c"] != {30: 2 * T, 50: 0} or len(outs) != 2 or d > 1:
-        raise SystemExit("phase 13 (c): K1 counts or PCM differ")
-    del dec, outs
 
     # (e) BatchDecoder over bench stream 0; QStreamBatchDecoder
     bd = BatchDecoder(bench[0], batch=LANES)
@@ -2473,10 +2447,6 @@ def main() -> None:
         "launches_phase13b_napb30": plans["b"][30],
         "launches_phase13b_path": "phase 13 (b): StreamBatchDecoder "
                                   f"(dense), {LANES} lanes x 50 frames",
-        "launches_phase13c_napb30": plans["c"][30],
-        "launches_phase13c_path": "phase 13 (c): PipelinedStreamBatch"
-                                  f"Decoder, {LANES} streams in 2 groups "
-                                  "x 50 frames",
         "launches_phase13d_napb50": plans["d"][50],
         "launches_phase13d_path": "phase 13 (d): StreamBatchDecoder, "
                                   f"{LANES} 34-band lanes x "

@@ -8,11 +8,13 @@ branch), decode_batch (with its Python prober), _decode_bucket_retry
 (with its last fallback, the single-stream ``codec/decoder.Decoder`` on
 decode_batch's device), _decode_bucket; and the plan-record decoders
 _pad_plan_frames, _he_plan_defaults, StreamBatchDecoder (compact or
-dense plans), BatchDecoder, _silence_record, PipelinedStreamBatchDecoder
-(packed records) and QStreamBatchDecoder, which decode_batch does not
-use: their plans come from ``planner.parse_stream_plans`` (or the
-native packed sink) and run through ``heaac_graph.scan_decode`` /
-``packed_scan_decode`` (QStreamBatchDecoder: the qwire scan).
+dense plans), BatchDecoder and QStreamBatchDecoder, which no entry point
+uses: their plans come from ``planner.parse_stream_plans`` and run
+through ``heaac_graph.scan_decode`` (QStreamBatchDecoder: the qwire
+scan).  The JAX package's pipelined decoder of packed, XOR-whitened
+plan records has no counterpart: ``QwirePipelinedDecoder`` is the
+port's one group pipeline, and ``parallel.sharding.
+ShardedQwireDecoder`` runs that pipeline with its lanes over cards.
 
 QwirePipelinedDecoder (HE-AAC v1/v2): the native parser (``native.py``)
 writes each group of streams into a byte heap + per-frame-lane records
@@ -66,8 +68,8 @@ from ..utils.trace import count, current, span
 from . import compact_plan, frame_plan
 from .heaac_graph import (heaac_frame, init_compact_state, init_qwire_carry,
                           init_qwire_flip_carry, init_state, lc_scan_decode,
-                          packed_scan_decode, qwire_scan_decode,
-                          qwire_scan_decode_flip, scan_decode, to_int16)
+                          qwire_scan_decode, qwire_scan_decode_flip,
+                          scan_decode, to_int16)
 from .decoder import Decoder
 from .planner import (LcPlanningDecoder, parse_stream_plans,
                       parse_stream_qwire)
@@ -416,7 +418,9 @@ class QwirePipelinedDecoder:
     def _upload(self, bufset: int, cur: int, Tg: int, couple=None):
         """Staging set (and the group's coupling edges) -> device tensors
         (non-blocking from pinned memory on CUDA, with an event the next
-        parse of this set waits on)."""
+        parse of this set waits on).  A step of ``decode``'s group loop,
+        which a subclass may override with its ``_scan`` and
+        ``_collect``."""
         heap_t, recs_t, _, _ = self._bufsets[bufset]
         n_up = min(cur + (1 << 18), self._cap)
         cuda = self.device.type == "cuda"
@@ -432,16 +436,26 @@ class QwirePipelinedDecoder:
         return heap_d, recs_d, couple
 
     def _scan(self, heap_d, recs_d, sa: dict, couple=None):
-        carry = init_qwire_carry(self.L, self.device)
+        """One group's qwire scan over the lanes of ``recs_d``, on their
+        device -> pcm [Tg, lanes, 2, 2048] int16."""
+        carry = init_qwire_carry(recs_d.shape[1], recs_d.device)
         _, pcm = qwire_scan_decode(heap_d, recs_d, carry, self.is34, self.ds,
                                    couple=couple, **sa)
         return pcm
 
+    def _collect(self, outs: list) -> list:
+        """``_scan``'s outputs, one per group -> ``decode()``'s result,
+        after the device is done."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return outs
+
     def decode(self):
         """Parse + upload + decode all streams, pipelined by group: the
-        parse of group g+1 runs on a worker thread while this thread
-        issues group g's decode.  Returns pcm tensors [T, L, 2, 2048]
-        int16 (one per group) on the device, after the device is done."""
+        parse of group g+1 runs on a worker thread (the native parser
+        keeps static state: one thread) while this thread issues group
+        g's decode.  Returns pcm tensors [T, L, 2, 2048] int16 (one per
+        group) on the device, after the device is done."""
         n = len(self.streams)
         ngroups = -(-n // self.G)
         self.frame_counts = []
@@ -461,8 +475,7 @@ class QwirePipelinedDecoder:
                                       parent)
                 with span("group.scan", group=gidx, steps=Tg):
                     outs.append(self._scan(heap_d, recs_d, sa, couple_d))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        outs = self._collect(outs)
         self._counts_in_input_order()
         return outs
 
@@ -850,7 +863,7 @@ def _decode_bucket(key, group, idxs, results, device) -> dict:
 
 # ---------------------------------------------------------------------------
 # Plan-record decoders: host-built per-frame plans (dense frame_plan or
-# compact / packed compact_plan records) scanned through the frame graph
+# compact compact_plan records) scanned through the frame graph
 # ---------------------------------------------------------------------------
 def _pad_plan_frames(d: dict, defaults: dict, T: int, nl: int) -> dict:
     """Pad each [T_i, nl, ...] leaf to T frames with the per-key silence
@@ -1024,193 +1037,6 @@ class BatchDecoder:
             pcm, state = self._step(t, state)
             outs.append(to_int16(pcm))
         return torch.cat(outs, 2).transpose(1, 2).cpu()
-
-
-def _silence_record() -> np.ndarray:
-    """The packed record of a silence lane ([REC_W] float32)."""
-    sc = compact_plan.zeros_compact()
-    pc = compact_plan.zeros_ps_compact()
-    meta = np.zeros((1, 1, 8), np.int32)
-    return compact_plan.pack_records(
-        meta, {k: v[None, None] for k, v in sc.items()},
-        {k: v[None, None] for k, v in pc.items()})[0, 0]
-
-
-class PipelinedStreamBatchDecoder:
-    """End-to-end batched decode over packed plan records where the host
-    parses stream group g+1 while the device decodes group g.
-
-    The native parser writes each stream's lanes straight into the
-    group's whitened packed records (``native.Parser
-    .parse_he_stream_packed_into``) in host staging buffers (pinned when
-    the device is CUDA, two sets); a stream it refuses is parsed by the
-    Python planner (``parse_stream_plans``) and packed
-    (``compact_plan.pack_records``) into the same staging.  Each group is
-    uploaded with non-blocking copies and decoded by
-    ``heaac_graph.packed_scan_decode`` on ``device`` (the card unless
-    the caller passes ``device="cpu"``); the parse of the next group runs
-    on a worker thread (the native call releases the GIL) and waits, before
-    it overwrites a staging set, for that set's last upload (a CUDA
-    event).  The lanes, frames (``max_frames``, else stream 0's), rate
-    and PS band mode come from stream 0; a stream of another band mode
-    or lane count raises ValueError (route mixed inputs through
-    ``decode_batch``), where the JAX class decodes it in the wrong mode
-    or writes its lanes over its neighbours'."""
-
-    def __init__(self, streams, group_streams: int = 256,
-                 max_frames: int | None = None, device="cuda"):
-        self.device = resolve(device)
-        self.streams = [bytes(s) for s in streams]
-        self.hdr = parse_adts_header(self.streams[0][:7])
-        self.G = min(group_streams, len(self.streams))
-        first = parse_stream_plans(self.streams[0], max_frames=max_frames,
-                                   compact=True)
-        self.nl = first[4]
-        self.T = (len(first[0]["coeffs"]) if max_frames is None
-                  else max_frames)
-        self.sample_rate, self.is34, self.ds = first[3], first[5], first[6]
-        self.parser = native.Parser()
-        self.frame_counts: list = []
-        self.L = self.G * self.nl
-        self._mask_c, self._mask_r = compact_plan.whiten_masks(self.T,
-                                                               self.L)
-        self._dev_masks = None
-        # whitened silence record per (frame, lane), for prefill and tails
-        sil = _silence_record().view(np.uint32)
-        self._wh_sil = (self._mask_r ^ sil).view(np.float32)
-        self._bufsets = [None, None]
-        self._uploaded = [None, None]   # CUDA event after each set's upload
-
-    def _buffers(self, bufset: int):
-        if self._bufsets[bufset] is None:
-            pin = self.device.type == "cuda"
-            coeffs_t = torch.empty((self.T, self.L, 1024),
-                                   dtype=torch.float32, pin_memory=pin)
-            rec_t = torch.empty((self.T, self.L, compact_plan.REC_W),
-                                dtype=torch.float32, pin_memory=pin)
-            coeffs, rec = coeffs_t.numpy(), rec_t.numpy()
-            coeffs.view(np.uint32)[:] = self._mask_c   # whitened zeros
-            rec[:] = self._wh_sil
-            self._bufsets[bufset] = (coeffs_t, rec_t, coeffs, rec)
-        return self._bufsets[bufset]
-
-    def _parse_group(self, group: list, bufset: int, n_real: int) -> None:
-        """Parse a group's streams into staging set ``bufset``; the first
-        ``n_real`` count in ``frame_counts`` (the rest pad the last
-        group)."""
-        ev = self._uploaded[bufset]
-        if ev is not None:
-            ev.synchronize()
-            self._uploaded[bufset] = None
-        _, _, coeffs, rec = self._buffers(bufset)
-        native_ok = native.available()
-        h = self.hdr
-
-        def reset_tail(sl, r):
-            """Frames [r:T] of these lanes may hold an earlier group's
-            data: restore (whitened) silence."""
-            if r < self.T:
-                coeffs.view(np.uint32)[r:, sl] = self._mask_c[r:, sl]
-                rec[r:, sl] = self._wh_sil[r:, sl]
-
-        for gi, data in enumerate(group):
-            sl = slice(gi * self.nl, (gi + 1) * self.nl)
-            r = None
-            if native_ok:
-                r = self.parser.parse_he_stream_packed_into(
-                    data, h.sampling_index, h.sample_rate, h.chan_config,
-                    coeffs, rec, gi * self.nl, self.T, self._mask_c,
-                    self._mask_r)
-                if r is not None and r[1]["lanes"] != self.nl:
-                    r = None   # layout mismatch: the Python planner
-            if r is not None:
-                if r[1]["is34"] != self.is34:
-                    raise ValueError(
-                        f"stream {gi} of the group: PS band mode is34="
-                        f"{r[1]['is34']} in a batch of is34={self.is34}; "
-                        "route mixed inputs through decode_batch")
-                nf = r[0]
-            else:
-                nf = self._parse_planner(gi, data, coeffs, rec, sl)
-            if gi < n_real:
-                self.frame_counts.append(nf)
-            reset_tail(sl, nf)
-
-    def _parse_planner(self, gi: int, data: bytes, coeffs, rec, sl) -> int:
-        """The Python planner's parse of stream ``gi`` into the staging
-        lanes ``sl``, whitened -> its frame count."""
-        log.info("pipelined decode: stream %d fell back to the Python "
-                 "planner", gi)
-        core, sbr, ps, rate, nl, is34, _ = parse_stream_plans(
-            data, max_frames=self.T, compact=True)
-        if (nl, is34) != (self.nl, self.is34):
-            raise ValueError(
-                f"stream {gi} of the group: (lanes, is34) {(nl, is34)} "
-                f"differs from the batch's {(self.nl, self.is34)}; route "
-                "mixed inputs through decode_batch")
-        nf = len(core["coeffs"])
-        coeffs.view(np.uint32)[:nf, sl] = (
-            core["coeffs"].view(np.uint32) ^ self._mask_c[:nf, sl])
-        meta = np.zeros((nf, nl, 8), np.int32)
-        for j, k in enumerate(("ws", "wsp", "kbd", "kbdp")):
-            meta[:, :, j] = core[k]
-        packed = compact_plan.pack_records(meta, sbr, ps)
-        rec.view(np.uint32)[:nf, sl] = (
-            packed.view(np.uint32) ^ self._mask_r[:nf, sl])
-        return nf
-
-    def _upload(self, bufset: int) -> tuple:
-        """Staging set -> device tensors (non-blocking from pinned memory
-        on CUDA, with the event the next parse of this set waits on)."""
-        coeffs_t, rec_t, _, _ = self._bufsets[bufset]
-        cuda = self.device.type == "cuda"
-        out = (coeffs_t.to(self.device, non_blocking=cuda),
-               rec_t.to(self.device, non_blocking=cuda))
-        if cuda:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            self._uploaded[bufset] = ev
-        if self._dev_masks is None:
-            self._dev_masks = tuple(
-                torch.from_numpy(m.view(np.int32)).to(self.device)
-                for m in (self._mask_c, self._mask_r))
-        return out
-
-    def decode(self) -> list:
-        """Parse + upload + decode all streams, pipelined by group.
-        Returns one pcm tensor [T, G * nl, 2, 2048] int16 per group, in
-        order, on the device, after the device is done (the last group
-        padded with the first streams)."""
-        n = len(self.streams)
-        groups = []
-        for g0 in range(0, n, self.G):
-            group = self.streams[g0:g0 + self.G]
-            groups.append((group + self.streams[:self.G - len(group)],
-                           len(group)))
-        self.frame_counts = []
-        outs = []
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            group, n_real = groups[0]
-            fut = pool.submit(self._parse_group, group, 0, n_real)
-            for gidx in range(len(groups)):
-                fut.result()
-                coeffs_d, rec_d = self._upload(gidx % 2)
-                if gidx + 1 < len(groups):
-                    group, n_real = groups[gidx + 1]
-                    fut = pool.submit(self._parse_group, group,
-                                      (gidx + 1) % 2, n_real)
-                carry = init_compact_state(self.L, self.device)
-                _, pcm = packed_scan_decode(coeffs_d, rec_d,
-                                            *self._dev_masks, carry,
-                                            self.is34, self.ds)
-                outs.append(pcm)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return outs
-
-    def audio_seconds(self) -> float:
-        spf = 1024 << (not self.ds)
-        return sum(fc * spf / self.sample_rate for fc in self.frame_counts)
 
 
 class QStreamBatchDecoder:

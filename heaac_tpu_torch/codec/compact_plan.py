@@ -1,12 +1,10 @@
-"""Compact frame plans: their wire layout, host builders and the device
+"""Compact frame plans: their layout, host builders and the device
 expansion.
 
-Counterpart: ``heaac_tpu/codec/compact_plan.py`` — the slot and record
-layout constants (SC_* / PC_* / REC_*), pack_records, whiten_masks,
-zeros_compact, zeros_ps_compact, build_sbr_compact and build_ps_compact
-(host numpy, names as there); on tensors unwhiten (unwhiten_jax),
-unpack_records (unpack_records_jax), init_ps_hist, expand_sbr and
-expand_ps.
+Counterpart: ``heaac_tpu/codec/compact_plan.py`` — the slot layout
+constants (SC_* / PC_*), zeros_compact, zeros_ps_compact,
+build_sbr_compact and build_ps_compact (host numpy, names as there); on
+tensors init_ps_hist, expand_sbr and expand_ps.
 
 A compact plan is the few integers and floats per frame-lane that the
 dense plans of ``codec/frame_plan.py`` are derived from (band maps,
@@ -14,20 +12,13 @@ envelope borders, kx / m, the patch map, noise and sine phases), ~3.5 KB
 where the dense plan is ~58 KB; ``expand_sbr`` rebuilds the dense SBR
 plan from it on the device, equal to ``frame_plan.build_sbr_plan``'s,
 and ``expand_ps`` the PS plan, carrying the reference's persistent H /
-IPD / OPD state (aacps.c:794-935) from frame to frame.  The packed
-record puts a frame-lane's whole compact plan into one float32 row of
-REC_W words (the native packed sink writes it; ``unpack_records`` cuts
-it back into the dict).  XOR whitening with fixed pseudorandom masks
-(``whiten_masks``) is bijective and exact; the port keeps it so its
-packed route takes the native sink's output as the JAX package's does.
+IPD / OPD state (aacps.c:794-935) from frame to frame.
 
-Differences from the JAX package: the XOR runs on int32 views of the
-float32 payloads (the same bits; CUDA has few uint32 kernels); the
-packed record is cut with ``Tensor.view`` where JAX bitcasts, and
-PyTorch fuses nothing across the cut, so the JAX
-``optimization_barrier`` has no counterpart and the packed route equals
-the compact one exactly; ``expand_sbr`` takes its two square roots
-through float64 (``_sqrt_rn``), so that they round as numpy's do.
+Differences from the JAX package: its packed, XOR-whitened record (the
+REC_* / W* layout, its packing, masks and unpacking) has no counterpart,
+as no decoder of the port reads it;
+``expand_sbr`` takes its two square roots through float64
+(``_sqrt_rn``), so that they round as numpy's do.
 """
 from __future__ import annotations
 
@@ -84,52 +75,9 @@ PB_IPD = 340                # [5,17]
 PB_OPD = 425                # [5,17]
 PC_B_N = 510
 
-# ---- packed record, in float32 words (he_host.inc RECW / RW_*) -------------
-#   [WF_SCF  : +SC_F_N)  sc_f
-#   [WI_SCI  : +SC_I_N)  sc_i (int32 bit patterns)
-#   [WI_PCI  : +PC_I_N)  pc_i
-#   [WI_META : +8)       core meta (ws, wsp, kbd, kbdp, tns, err, 0, 0)
-#   [WB_BYTES: +248)     sc_b [480] ++ pc_b [510] ++ 2 pad bytes (int8)
-WF_SCF = 0
-WI_SCI = WF_SCF + SC_F_N           # 587
-WI_PCI = WI_SCI + SC_I_N           # 611
-WI_META = WI_PCI + PC_I_N          # 627
-WB_BYTES = WI_META + 8             # 635
-REC_W = WB_BYTES + (SC_B_N + PC_B_N + 3) // 4   # 883 f32 words
-REC_BYTES = REC_W * 4                           # 3532
-
-WHITEN_SEED = 0xC0FFEE
-
-
 # ---------------------------------------------------------------------------
-# Host: records, masks, silence
+# Host: silence
 # ---------------------------------------------------------------------------
-def pack_records(core_meta, sc: dict, pc: dict) -> np.ndarray:
-    """[T, L, ...] compact leaves and core meta [T, L, 8] int32 -> the
-    packed records [T, L, REC_W] float32 (what the native packed sink
-    writes)."""
-    T, nl = sc["sc_i"].shape[:2]
-    rec = np.zeros((T, nl, REC_BYTES), np.uint8)
-    f32v = rec.view(np.float32).reshape(T, nl, REC_W)
-    i32v = rec.view(np.int32).reshape(T, nl, REC_W)
-    f32v[:, :, WF_SCF:WF_SCF + SC_F_N] = sc["sc_f"]
-    i32v[:, :, WI_SCI:WI_SCI + SC_I_N] = sc["sc_i"]
-    i32v[:, :, WI_PCI:WI_PCI + PC_I_N] = pc["pc_i"]
-    i32v[:, :, WI_META:WI_META + 8] = core_meta
-    b0 = WB_BYTES * 4
-    rec[:, :, b0:b0 + SC_B_N] = sc["sc_b"].view(np.uint8)
-    rec[:, :, b0 + SC_B_N:b0 + SC_B_N + PC_B_N] = pc["pc_b"].view(np.uint8)
-    return f32v
-
-
-def whiten_masks(T: int, nl: int):
-    """The XOR masks of the coefficient and record payloads, uint32
-    [T, nl, 1024] and [T, nl, REC_W], deterministic in (seed, shape)."""
-    rng = np.random.default_rng(WHITEN_SEED)
-    return (rng.integers(0, 2**32, size=(T, nl, 1024), dtype=np.uint32),
-            rng.integers(0, 2**32, size=(T, nl, REC_W), dtype=np.uint32))
-
-
 def zeros_compact() -> dict:
     """Silence-lane compact SBR plan (expands to frame_plan._zeros_plan())."""
     sc_i = np.zeros(SC_I_N, np.int32)
@@ -292,36 +240,8 @@ def build_ps_compact(ps, top: int, is34: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Device: un-whitening, record unpacking, expansion
+# Device: expansion
 # ---------------------------------------------------------------------------
-def unwhiten(coeffs_w, rec_w, mask_c, mask_r):
-    """Whitened float32 payloads [B, 1024] / [B, REC_W] and their masks
-    (int32 tensors holding the uint32 bits) -> the raw float32 payloads."""
-    coeffs = (coeffs_w.view(torch.int32) ^ mask_c).view(torch.float32)
-    rec = (rec_w.view(torch.int32) ^ mask_r).view(torch.float32)
-    return coeffs, rec
-
-
-def unpack_records(rec):
-    """rec [B, REC_W] float32 -> (core meta dict ws / wsp / kbd / kbdp,
-    sc dict, pc dict) as the native compact parser gives them: views of
-    ``rec`` (a column slice reinterpreted as int32, or as int8 bytes)."""
-    if rec.dtype != torch.float32 or rec.dim() != 2 or \
-            rec.shape[1] != REC_W:
-        raise ValueError(f"records must be float32 [B, {REC_W}], not "
-                         f"{rec.dtype} {tuple(rec.shape)}")
-    i32 = rec.view(torch.int32)
-    meta = i32[:, WI_META:WI_META + 8]
-    raw = rec[:, WB_BYTES:REC_W].view(torch.int8)        # [B, 992]
-    core_meta = dict(ws=meta[:, 0], wsp=meta[:, 1], kbd=meta[:, 2],
-                     kbdp=meta[:, 3])
-    sc = dict(sc_i=i32[:, WI_SCI:WI_SCI + SC_I_N], sc_b=raw[:, :SC_B_N],
-              sc_f=rec[:, WF_SCF:WF_SCF + SC_F_N])
-    pc = dict(pc_i=i32[:, WI_PCI:WI_PCI + PC_I_N],
-              pc_b=raw[:, SC_B_N:SC_B_N + PC_B_N])
-    return core_meta, sc, pc
-
-
 @functools.cache
 def _luts(device: torch.device):
     HA, HB = TB.mixing_luts()

@@ -4,9 +4,8 @@ Counterpart: ``heaac_tpu/codec/heaac_graph.py`` — HeaacState/init_state,
 _ps_stage, heaac_frame (is34 0, 1 or 2 = both band modes selected per
 lane; downsampled 0, or 1 for the 32-band synthesis of downsampled SBR;
 with the ps_on gate and the PS state freeze), init_compact_state,
-heaac_frame_compact, the plan-record scans (``heaac_tpu/codec/batch.py``
-_make_scan_decoder, dense or compact: ``scan_decode``;
-_make_packed_scan_decoder: ``packed_scan_decode``), init_qwire_carry,
+heaac_frame_compact, the plan-record scan (``heaac_tpu/codec/batch.py``
+_make_scan_decoder, dense or compact: ``scan_decode``), init_qwire_carry,
 heaac_frame_qwire, _qwire_decode_all_coeffs (with the device M/S pair
 butterfly), qwire_scan_decoder, qwire_scan_decoder_couple, and the
 band-mode flip scan (_convert_ps_flip, _flip_scan,
@@ -178,27 +177,6 @@ def scan_decode(core_seq: dict, sbr_seq: dict, ps_seq: dict, carry,
         at = lambda d: {k: v[t] for k, v in d.items()}  # noqa: E731
         out, carry = step(at(core_seq), at(sbr_seq), at(ps_seq), carry,
                           is34, downsampled)
-        pcm[t] = to_int16(out)
-    return carry, pcm
-
-
-def packed_scan_decode(coeffs_seq, rec_seq, mask_c, mask_r, carry,
-                       is34: int = 0, downsampled: int = 0):
-    """_make_packed_scan_decoder's run: the compact scan over packed
-    records.  coeffs_seq [T, B, 1024] and rec_seq [T, B, REC_W] float32
-    as the native packed sink whitens them, mask_c / mask_r their XOR
-    masks (int32 tensors of the same shapes); each frame is un-whitened
-    and unpacked (``compact_plan.unwhiten``, ``unpack_records``) and
-    decoded by ``heaac_frame_compact``.  -> (carry, pcm int16
-    [T, B, 2, N])."""
-    T, B = rec_seq.shape[:2]
-    pcm = _pcm_buffer(T, B, downsampled, rec_seq.device)
-    for t in range(T):
-        coeffs, rec = compact_plan.unwhiten(coeffs_seq[t], rec_seq[t],
-                                            mask_c[t], mask_r[t])
-        meta, sc, pc = compact_plan.unpack_records(rec)
-        out, carry = heaac_frame_compact(dict(coeffs=coeffs, **meta), sc, pc,
-                                         carry, is34, downsampled)
         pcm[t] = to_int16(out)
     return carry, pcm
 

@@ -6,12 +6,13 @@ by path, with the same g++ flags, into its own build directory and binds
 the entry points the decoders call: the HE qwire parser (and the
 two-frame probe ``decode_batch`` buckets by), the whole-stream LC
 parser, the single-stream Decoder's per-element SCE / CPE parsers and
-the HE plan-record parsers of the plan decoders (dense, compact,
-compact strided and packed; ``heaac_tpu/native/__init__.py``
-parse_stream, probe_he_stream, parse_sce, parse_cpe, parse_he_stream,
-parse_he_stream_compact[_into], parse_he_stream_packed_into, with
-_field_size and _unpack).  The parser is always built: a build or load
-failure raises.
+the HE plan-record parsers of the plan decoders (dense, compact and
+compact strided; ``heaac_tpu/native/__init__.py`` parse_stream,
+probe_he_stream, parse_sce, parse_cpe, parse_he_stream,
+parse_he_stream_compact[_into], with _field_size and _unpack).  The
+packed sink ``hh_parse_he_stream_packed`` stays in the library unbound:
+no decoder of the port reads packed records.  The parser is always
+built: a build or load failure raises.
 The library is rebuilt when ``aac_host.cc`` or either file it includes
 is newer.  The parser keeps static state: one native call at a time.
 """
@@ -132,10 +133,10 @@ def available() -> bool:
 
 
 class Parser:
-    """ctypes binding of ``hh_parse_he_stream_qwire``,
-    ``hh_parse_he_stream[_compact[_strided]]`` and
-    ``hh_parse_he_stream_packed`` (he_host.inc), ``ht_parse_stream``,
-    ``ht_parse_sce`` and ``ht_parse_cpe`` (aac_host.cc)."""
+    """ctypes binding of ``hh_parse_he_stream_qwire`` and
+    ``hh_parse_he_stream[_compact[_strided]]`` (he_host.inc),
+    ``ht_parse_stream``, ``ht_parse_sce`` and ``ht_parse_cpe``
+    (aac_host.cc)."""
 
     def __init__(self):
         build()
@@ -177,9 +178,6 @@ class Parser:
         L.hh_parse_he_stream_compact_strided.argtypes = head + [
             f32p, i32p, i32p, i8p, f32p, i32p, i8p, c_int, c_i64, c_i64,
             i32p]
-        L.hh_parse_he_stream_packed.restype = c_int
-        L.hh_parse_he_stream_packed.argtypes = head + [
-            f32p, f32p, c_int, c_i64, c_i64, u32p, u32p, i32p]
         L.ht_init()
         self.lib = L
         self.parse_qwire = L.hh_parse_he_stream_qwire
@@ -380,37 +378,6 @@ class Parser:
         r = self.lib.hh_parse_he_stream_compact_strided(
             data, len(data), sampling_index, core_rate, chan_config,
             *p[:7], max_frames, stride, lane0, p[7])
-        if r < 0:
-            return None
-        return r, _info(info)
-
-    def parse_he_stream_packed_into(self, data: bytes, sampling_index: int,
-                                    core_rate: int, chan_config: int,
-                                    coeffs, rec, lane0: int, max_frames: int,
-                                    coeffs_mask=None, rec_mask=None):
-        """Strided parse into the packed f32 records (``compact_plan``
-        REC layout): coeffs [T, L, 1024] and rec [T, L, REC_W] float32,
-        from lane ``lane0`` on; with the masks (uint32, the same shapes)
-        every written word is XOR-whitened.  -> (frames, info dict), or
-        None for the Python planner."""
-        from .codec import compact_plan as cp
-        T, stride = coeffs.shape[:2]
-        if rec.shape != (T, stride, cp.REC_W) or \
-                coeffs.shape != (T, stride, 1024):
-            raise ValueError(f"packed buffers {coeffs.shape}, {rec.shape}")
-        for m, a in ((coeffs_mask, coeffs), (rec_mask, rec)):
-            if m is not None and m.shape != a.shape:
-                raise ValueError(f"mask {m.shape} for buffer {a.shape}")
-        if not self._fits(chan_config, lane0, stride, max_frames, T):
-            return None
-        info = np.zeros(4, np.int32)
-        pc, pr, pi = self._ptrs(coeffs, rec, info)
-        null = ctypes.cast(None, ctypes.POINTER(ctypes.c_uint32))
-        mc, mr = (self._ptrs(m)[0] if m is not None else null
-                  for m in (coeffs_mask, rec_mask))
-        r = self.lib.hh_parse_he_stream_packed(
-            data, len(data), sampling_index, core_rate, chan_config, pc, pr,
-            max_frames, stride, lane0, mc, mr, pi)
         if r < 0:
             return None
         return r, _info(info)

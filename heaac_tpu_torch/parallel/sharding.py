@@ -6,6 +6,10 @@ Streams are independent, so the parallel axis is the lane axis: each
 card decodes a contiguous slice of the lanes with the unchanged scan
 (the plan scan for ``ShardedStreamBatchDecoder``, the qwire scan for
 ``ShardedQwireDecoder``), and no card ever needs another card's data.
+``ShardedQwireDecoder`` is a ``QwirePipelinedDecoder`` that keeps its
+base class's group loop, parse and spans (``group.parse``,
+``group.parse_wait``, ``group.upload``, ``group.scan``) and overrides
+only the per-group upload, scan and collection.
 
 Differences from the JAX package:
   - the cut follows stream boundaries (``shard_bounds``): card k takes
@@ -15,11 +19,11 @@ Differences from the JAX package:
     decoder lets XLA insert the collectives that join a stream cut in
     two; PyTorch inserts none, and this cut needs none.  The lane count
     must still divide by the number of devices, as in JAX;
-  - ``ShardedQwireDecoder.decode`` parses with each group's real stream
-    count and resets ``error_count``, as the port's
-    ``QwirePipelinedDecoder`` does: the JAX class counts the corrupt
-    frames of a short last group's padding copies again and adds every
-    ``decode()`` call to the last;
+  - ``ShardedQwireDecoder`` counts frames and errors as its base class
+    does: each group's real streams only, reset by every ``decode()``
+    call; the JAX class counts the corrupt frames of a short last
+    group's padding copies again and adds every ``decode()`` call to
+    the last;
   - a device is a ``torch.device`` in a list, not a mesh.  One card may
     stand in the list more than once: it then runs that many shards;
   - ``ShardedStreamBatchDecoder`` cuts the lanes evenly, as the JAX
@@ -29,20 +33,18 @@ Differences from the JAX package:
 
 One host thread issues the cards one after the other, and the frame
 loop is bound by that issue, so several cards fed by one process decode
-no faster than one; one process per card (``multihost``) is the way to
-use them.
+no faster than one (two H100s of one process ran 512 streams at 0.49x
+of one card's ``QwirePipelinedDecoder``, before the step graph); one
+process per card (``multihost``) is the way to use them.
 """
 from __future__ import annotations
-
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from ..codec.batch import QwirePipelinedDecoder, StreamBatchDecoder, \
     _to_device
 from ..codec.core import consts, core_frame
-from ..codec.heaac_graph import (init_qwire_carry, qwire_scan_decode,
-                                  scan_decode)
+from ..codec.heaac_graph import scan_decode
 from ..device import resolve
 
 
@@ -154,104 +156,74 @@ def _card_couple(couple, lo: int, hi: int, dev):
         gains[:, keep].copy()))
 
 
-class ShardedQwireDecoder:
+class ShardedQwireDecoder(QwirePipelinedDecoder):
     """``QwirePipelinedDecoder`` with each stream group's lanes spread
     over ``devices`` (``make_devices()`` when None: every visible card,
-    so without a card the constructor raises).  The inner decoder
-    (``self.inner``, on ``devices[0]``) holds the profile, the grouping
-    and the host parse; each group is parsed once, its byte heap copied
-    whole to every card and its records cut by ``shard_bounds``, and
-    every card runs the qwire scan on its lanes (K1 once a frame on each
-    card that has lanes).  ``decode()`` returns one CPU int16 tensor
-    [Tg, L, 2, 2048] per group, lanes in the inner decoder's order (the
-    padding lanes of a short last group included), after every card is
-    done.  Raises ValueError when the lanes of a group do not divide by
-    the number of devices, as the JAX class does."""
+    so without a card the constructor raises).  The group loop, its
+    spans, the profile, the grouping and the host parse are the base
+    class's, on ``devices[0]``; this class replaces only its per-group
+    steps: each group's byte heap goes whole to every distinct card and
+    its records are cut by ``shard_bounds``, every card runs the qwire
+    scan on its lanes (K1 once a frame on each card that has lanes), and
+    the cards' PCM is joined on the CPU.  ``decode()`` returns one CPU
+    int16 tensor [Tg, L, 2, 2048] per group, lanes in the unsharded
+    order (the padding lanes of a short last group included), after
+    every card is done.  Raises ValueError when the lanes of a group do
+    not divide by the number of devices, as the JAX class does."""
 
     def __init__(self, streams, devices=None, group_streams: int = 256,
                  max_frames: int | None = None):
         self.devices = [resolve(d) for d in (
             make_devices() if devices is None else devices)]
-        self.inner = QwirePipelinedDecoder(streams, group_streams,
-                                           max_frames,
-                                           device=self.devices[0])
+        super().__init__(streams, group_streams, max_frames,
+                         device=self.devices[0])
         n = len(self.devices)
-        if self.inner.L % n:
+        if self.L % n:
             raise ValueError(
-                f"{self.inner.L} lanes per group not divisible by {n} "
-                "devices")
-        self.bounds = shard_bounds(self.inner.G, self.inner.nl, n)
+                f"{self.L} lanes per group not divisible by {n} devices")
+        self.bounds = shard_bounds(self.G, self.nl, n)
 
-    @property
-    def frame_counts(self) -> list:
-        return self.inner.frame_counts
-
-    @property
-    def error_count(self) -> int:
-        return self.inner.error_count
-
-    def audio_seconds(self) -> float:
-        return self.inner.audio_seconds()
-
-    def _upload(self, bufset: int, cur: int, Tg: int, couple) -> list:
-        """Staging set ``bufset`` -> per card (heap, records, coupling
-        edges) on the card, or None for a card without lanes; the heap
-        goes once to each distinct card.  Every CUDA copy is followed by
-        an event, all of which the next parse of this set waits on."""
-        dec = self.inner
-        heap_t, recs_t, _, _ = dec._bufsets[bufset]
-        n_up = min(cur + (1 << 18), dec._cap)
-        heaps, events, shards = {}, [], []
+    def _upload(self, bufset: int, cur: int, Tg: int, couple=None):
+        """Staging set ``bufset`` -> per card (in ``devices``' order) its
+        heap, records and coupling edges on the card, as three lists
+        holding None for a card without lanes; the heap goes once to
+        each distinct card.  Every CUDA copy is followed by an event, all
+        of which the next parse of this set waits on."""
+        heap_t, recs_t, _, _ = self._bufsets[bufset]
+        n_up = min(cur + (1 << 18), self._cap)
+        on_card, events = {}, []
+        heaps, recs, couples = [], [], []
         for dev, (lo, hi) in zip(self.devices, self.bounds):
             if lo == hi:
-                shards.append(None)
+                heaps.append(None)
+                recs.append(None)
+                couples.append(None)
                 continue
             cuda = dev.type == "cuda"
-            if dev not in heaps:
-                heaps[dev] = heap_t[:n_up].to(dev, non_blocking=cuda)
+            if dev not in on_card:
+                on_card[dev] = heap_t[:n_up].to(dev, non_blocking=cuda)
             recs_d = recs_t[:Tg, lo:hi].to(dev, non_blocking=cuda)
             if cuda:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(dev))
                 events.append(ev)
-            shards.append((heaps[dev], recs_d.contiguous(),
-                           _card_couple(couple, lo, hi, dev)))
-        dec._uploaded[bufset] = events
-        return shards
+            heaps.append(on_card[dev])
+            recs.append(recs_d.contiguous())
+            couples.append(_card_couple(couple, lo, hi, dev))
+        self._uploaded[bufset] = events
+        return heaps, recs, couples
 
-    def decode(self) -> list:
-        """Parse + upload + decode every group, the parse of group g+1 on
-        a worker thread (the native parser keeps static state: one
-        thread) while this thread issues group g on each card in turn."""
-        dec = self.inner
-        n = len(dec.streams)
-        ngroups = -(-n // dec.G)
-        dec.frame_counts = []
-        dec.error_count = 0
-        per_group = []
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            fut = pool.submit(dec._parse_with_retry, 0)
-            for gidx in range(ngroups):
-                cur, Tg, sa, couple = fut.result()
-                shards = self._upload(gidx % 2, cur, Tg, couple)
-                if gidx + 1 < ngroups:
-                    fut = pool.submit(dec._parse_with_retry, gidx + 1)
-                pcms = []
-                for dev, (lo, hi), shard in zip(self.devices, self.bounds,
-                                                shards):
-                    if shard is None:
-                        continue
-                    heap_d, recs_d, couple_d = shard
-                    _, pcm = qwire_scan_decode(
-                        heap_d, recs_d, init_qwire_carry(hi - lo, dev),
-                        dec.is34, dec.ds, couple=couple_d, **sa)
-                    pcms.append(pcm)
-                per_group.append(pcms)
+    def _scan(self, heaps, recs, sa: dict, couples=None) -> list:
+        """The qwire scan of each card with lanes, issued card after card
+        -> their pcm tensors, on their cards."""
+        scan = super()._scan
+        return [scan(h, r, sa, c)
+                for h, r, c in zip(heaps, recs, couples) if h is not None]
+
+    def _collect(self, outs: list) -> list:
+        """Per group the cards' pcm tensors -> one CPU tensor a group, the
+        cards' lanes joined in order, after every card is done."""
         for dev in dict.fromkeys(self.devices):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-        by_orig = [0] * n
-        for k, i in enumerate(dec.order):
-            by_orig[i] = dec.frame_counts[k]
-        dec.frame_counts = by_orig
-        return [torch.cat([p.cpu() for p in pcms], 1) for pcms in per_group]
+        return [torch.cat([p.cpu() for p in pcms], 1) for pcms in outs]

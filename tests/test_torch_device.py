@@ -8,7 +8,6 @@ import torch
 from heaac_tpu_torch import (Decoder, cli, decode, decode_adts, decode_batch,
                              decode_m4a)
 from heaac_tpu_torch.codec.batch import (BatchDecoder, LcStreamBatchDecoder,
-                                         PipelinedStreamBatchDecoder,
                                          QStreamBatchDecoder,
                                          QwirePipelinedDecoder,
                                          StreamBatchDecoder)
@@ -104,11 +103,10 @@ def test_plan_decoders_default_to_the_card():
               lambda: StreamBatchDecoder(streams, max_frames=2,
                                          compact=False),
               lambda: BatchDecoder(streams[0], batch=2),
-              lambda: PipelinedStreamBatchDecoder(streams, max_frames=2),
               lambda: QStreamBatchDecoder(streams, max_frames=2),
               lambda: ShardedStreamBatchDecoder(streams, max_frames=2))
     if torch.cuda.is_available():
-        for make in makers[:5]:
+        for make in makers[:4]:
             assert make().device.type == "cuda"
         return
     for make in makers:

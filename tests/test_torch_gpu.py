@@ -11,10 +11,10 @@ parse), the downsampled-SBR scan, the single-stream Decoder
 .m4a inputs, the parallel layer: ``ShardedQwireDecoder`` with two
 shards on one card and, with two cards or more, K1 on ``cuda:1`` while
 ``cuda:0`` is current and the sharded decode across both cards; and the
-plan-record decoders: ``StreamBatchDecoder`` (compact and dense) and
-``PipelinedStreamBatchDecoder`` on the card against their CPU runs,
-and ``ShardedStreamBatchDecoder`` with two shards on one card against
-the unsharded decode, K1 once a frame (per shard) at napb 30; the qwire
+plan-record decoders: ``StreamBatchDecoder`` (compact and dense) on
+the card against its CPU runs, and ``ShardedStreamBatchDecoder`` with
+two shards on one card against the unsharded decode, K1 once a frame
+(per shard) at napb 30; the qwire
 scan's CUDA-graph replay of its frame step against the same frames
 stepped eagerly, chained scans, and the graph cache's second call; the
 qwire step's row-decoder kernel against the plain row decoders on fuzzed
@@ -32,8 +32,7 @@ import torch
 
 from heaac_tpu_torch import Decoder, decode_adts, decode_batch, decode_m4a
 from heaac_tpu_torch.codec import heaac_graph, step_graph
-from heaac_tpu_torch.codec.batch import (PipelinedStreamBatchDecoder,
-                                         QwirePipelinedDecoder,
+from heaac_tpu_torch.codec.batch import (QwirePipelinedDecoder,
                                          StreamBatchDecoder,
                                          decode_qwire_flip_stream,
                                          pack_planner_frames)
@@ -324,20 +323,6 @@ def test_stream_batch_decoder_on_card_matches_cpu(cuda, compact):
                              device="cpu").decode()
     assert pcm.shape == ref.shape == (8, 8, 2, 2048)
     assert int((pcm.int() - ref.int()).abs().max()) <= 2
-
-
-def test_pipelined_stream_batch_decoder_on_card_matches_cpu(cuda):
-    """Two groups of four streams: K1 once a frame per group."""
-    streams = bench_streams(8)
-    outs, k1 = _k1_counted(lambda: [o.cpu() for o in
-                                    PipelinedStreamBatchDecoder(
-                                        streams, group_streams=4,
-                                        max_frames=8).decode()])
-    assert k1 == {30: 16, 50: 0}
-    ref = PipelinedStreamBatchDecoder(streams, group_streams=4, max_frames=8,
-                                      device="cpu").decode()
-    for got, want in zip(outs, ref):
-        assert int((got.int() - want.int()).abs().max()) <= 2
 
 
 def test_sharded_stream_batch_decoder_on_one_card(cuda):

@@ -22,9 +22,8 @@ the port's AacEncoder and makes the first distinct HE-AAC v2 stream
 with its generators (``splice_sbr_into_lc`` with an SBR and a PS
 writer), equal to the JAX encoder's bytes and the JAX generators'
 sha256 in that golden; then decodes two benchdata streams (4 frames)
-with the plan-record decoders ``StreamBatchDecoder`` (compact and dense
-plans) and ``PipelinedStreamBatchDecoder`` (packed records), against
-tests/data/plan_golden_jax.npz; then imports the benchmark entry
+with the plan-record decoder ``StreamBatchDecoder`` (compact and dense
+plans), against tests/data/plan_golden_jax.npz; then imports the benchmark entry
 ``heaac_tpu_torch.bench`` and its gate ``heaac_tpu_torch.bench_gate``
 (importing the repo root's ``bench.py`` fails there too)."""
 import os
@@ -131,19 +130,15 @@ adts = tool.encode_case("lc_mono_24k", AacEncoder, egold["pcm_lc_mono_24k"])
 he = heaac_testgen.distinct_stream(tool.bench_cores(REPO), 0)
 print("ENCODE", adts == egold["adts_lc_mono_24k"].tobytes(),
       hashlib.sha256(he).hexdigest() == str(egold["distinct_sha256"][0]))
-from heaac_tpu_torch.codec.batch import (PipelinedStreamBatchDecoder,
-                                         StreamBatchDecoder)
+from heaac_tpu_torch.codec.batch import StreamBatchDecoder
 bench2 = [data, open(REPO + "/benchdata/heaac_bench_stream_1.aac",
                      "rb").read()]
 pgold = np.load(REPO + "/tests/data/plan_golden_jax.npz")
 plans = [StreamBatchDecoder(bench2, max_frames=4, compact=c,
                             device="cpu").decode().numpy()
          for c in (True, False)]
-plans += [PipelinedStreamBatchDecoder(bench2, group_streams=2, max_frames=4,
-                                      device="cpu").decode()[0].numpy()]
 pdiff = max(int(np.abs(p.astype(np.int32) - pgold[k][:4]).max())
-            for p, k in zip(plans, ("he20_compact/pcm", "he20_dense/pcm",
-                                    "pipelined/pcm")))
+            for p, k in zip(plans, ("he20_compact/pcm", "he20_dense/pcm")))
 print("PLANS", [p.shape for p in plans], pdiff <= 2)
 from heaac_tpu_torch import bench, bench_gate
 print("BENCH", bench.METRIC, bench_gate.GATED)
@@ -180,8 +175,7 @@ def test_port_decodes_without_jax():
     encode = [x for x in r.stdout.splitlines() if x.startswith("ENCODE")][0]
     assert encode == "ENCODE True True", encode
     plans = [x for x in r.stdout.splitlines() if x.startswith("PLANS")][0]
-    assert plans == "PLANS [(4, 2, 2, 2048), (4, 2, 2, 2048), " \
-        "(4, 2, 2, 2048)] True", plans
+    assert plans == "PLANS [(4, 2, 2, 2048), (4, 2, 2, 2048)] True", plans
     bline = [x for x in r.stdout.splitlines() if x.startswith("BENCH")][0]
     assert bline == ("BENCH sustained_end_to_end_realtime_factor_heaacv2_48k"
                      "_per_chip ['value', 'parse_only_x', 'device_only_x']"), \

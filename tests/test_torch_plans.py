@@ -1,15 +1,12 @@
 """The plan-record decoders of the PyTorch port against the JAX package,
-on the CPU: host plans, the packed records, the compact expansion and the
-decoders' PCM.
+on the CPU: host plans, the compact expansion and the decoders' PCM.
 
 ``parse_stream_plans`` of both packages, leaf by leaf and exactly
 (dtypes and shapes too), on the native and the Python route (forced in
 both packages by setting each package's ``native.available`` False),
 compact and dense, and with an AudioSpecificConfig (downsampled SBR);
-the native packed sink, ``pack_records`` and ``whiten_masks`` byte for
-byte against the JAX package's, and ``unpack_records(unwhiten(...))``
-back to the compact leaves exactly; the port's ``expand_sbr`` of its
-compact records equal to its dense plans exactly, and within 1e-6 of
+the port's ``expand_sbr`` of its compact records equal to its dense
+plans exactly, and within 1e-6 of
 each element of the JAX ``expand_sbr`` in the golden; the PCM of
 ``StreamBatchDecoder`` (compact and dense), ``BatchDecoder``,
 ``QStreamBatchDecoder`` and ``heaac_frame_compact`` within 2 int16 LSB
@@ -28,14 +25,13 @@ import torch
 
 import heaac_tpu.native as jax_native
 from heaac_tpu.codec import batch as jax_batch
-from heaac_tpu.codec import compact_plan as jax_cp
 from heaac_tpu.ops import imdct as jax_imdct
 from heaac_tpu_torch import native
 from heaac_tpu_torch.codec import compact_plan, heaac_graph
 from heaac_tpu_torch.codec.batch import (BatchDecoder, QStreamBatchDecoder,
                                          StreamBatchDecoder)
 from heaac_tpu_torch.codec.planner import parse_stream_plans
-from heaac_tpu_torch.host import parse_adts_header, split_adts_stream
+from heaac_tpu_torch.host import split_adts_stream
 from heaac_tpu_torch.ops import imdct
 from test_torch_common import (  # noqa: F401 (autouse fixture)
     REPO, assert_exact, assert_peak_close, golden_tool, n,
@@ -118,78 +114,6 @@ def test_parse_stream_plans_matches_jax(kind, route, compact, request):
                                         compact=compact)
     assert_same_parse(got, want, f"{kind} {route}")
     assert len(got[0]["coeffs"]) == frames
-
-
-def packed_buffers(data: bytes, parser, frames: int, nl: int, masks):
-    """A stream through a package's native packed sink at lane 1 of a
-    [frames, nl + 2] row prefilled with whitened zeros, lanes 0 and
-    nl + 1 with 7.0 (they must stay untouched)."""
-    h = parse_adts_header(data[:7])
-    coeffs, rec = (m.view(np.float32).copy() for m in masks)
-    for buf in (coeffs, rec):
-        buf[:, [0, nl + 1]] = 7.0
-    r = parser(data, h.sampling_index, h.sample_rate, h.chan_config, coeffs,
-               rec, 1, frames, *masks)
-    assert r is not None and r[0] == frames and r[1]["lanes"] == nl
-    return coeffs, rec
-
-
-@pytest.mark.parametrize("kind", ["he20", "he_v1s"])
-def test_packed_records_round_trip_against_jax(kind):
-    """whiten_masks and pack_records equal the JAX package's; the native
-    packed sink of both packages writes the same bytes, equal to the
-    whitened pack_records of the native compact parse; unwhiten +
-    unpack_records on tensors give back the compact leaves exactly."""
-    data, _ = parse_input(kind)
-    core, sbr, ps, _, nl, _, _ = parse_stream_plans(data, max_frames=FRAMES,
-                                                    compact=True)
-    masks = compact_plan.whiten_masks(FRAMES, nl + 2)
-    for m, jm in zip(masks, jax_cp.whiten_masks(FRAMES, nl + 2)):
-        np.testing.assert_array_equal(m, jm)
-    c_port, r_port = packed_buffers(
-        data, native.Parser().parse_he_stream_packed_into, FRAMES, nl, masks)
-    c_jax, r_jax = packed_buffers(data, jax_native.parse_he_stream_packed_into,
-                                  FRAMES, nl, masks)
-    np.testing.assert_array_equal(c_port.view(np.uint32),
-                                  c_jax.view(np.uint32))
-    np.testing.assert_array_equal(r_port.view(np.uint32),
-                                  r_jax.view(np.uint32))
-    for buf in (c_port, r_port):
-        assert (buf[:, [0, nl + 1]] == 7.0).all()
-    meta = np.zeros((FRAMES, nl, 8), np.int32)
-    for j, k in enumerate(("ws", "wsp", "kbd", "kbdp")):
-        meta[:, :, j] = core[k]
-    # the sink also writes the TNS / error words of the core meta
-    meta[:, :, 4:] = (r_port[:, 1:nl + 1].view(np.uint32)
-                      ^ masks[1][:, 1:nl + 1]).view(np.int32)[
-        :, :, compact_plan.WI_META + 4:compact_plan.WI_META + 8]
-    packed = compact_plan.pack_records(meta, sbr, ps)
-    np.testing.assert_array_equal(
-        packed.view(np.uint32),
-        jax_cp.pack_records(meta, sbr, ps).view(np.uint32))
-    # the sink writes the record's two pad bytes as plain zeros (not
-    # whitened); every other byte is pack_records' whitened
-    raw = (r_port[:, 1:nl + 1].view(np.uint32)
-           ^ masks[1][:, 1:nl + 1]).view(np.uint8)
-    np.testing.assert_array_equal(raw[..., :-2],
-                                  packed.view(np.uint8)[..., :-2])
-    assert not r_port[:, 1:nl + 1].view(np.uint8)[..., -2:].any()
-    i32 = lambda a: t(np.ascontiguousarray(a).view(np.int32),  # noqa: E731
-                      torch.int32)
-    for f in range(FRAMES):
-        coeffs, rec = compact_plan.unwhiten(
-            t(c_port[f, 1:nl + 1]), t(r_port[f, 1:nl + 1]),
-            i32(masks[0][f, 1:nl + 1]), i32(masks[1][f, 1:nl + 1]))
-        np.testing.assert_array_equal(n(coeffs).view(np.uint32),
-                                      core["coeffs"][f].view(np.uint32))
-        m, sc, pc = compact_plan.unpack_records(rec)
-        for k in ("ws", "wsp", "kbd", "kbdp"):
-            np.testing.assert_array_equal(n(m[k]), core[k][f])
-        for got, want in ((sc, sbr), (pc, ps)):
-            for k in want:
-                assert n(got[k]).dtype == want[k].dtype, k
-                np.testing.assert_array_equal(
-                    n(got[k]).view(np.uint8), want[k][f].view(np.uint8))
 
 
 def expand_frames(sbr: dict, frames: int) -> list:

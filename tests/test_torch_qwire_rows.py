@@ -145,11 +145,12 @@ def host_kernel(tmp_path_factory):
     return lib
 
 
+@pytest.mark.parametrize("seed", range(3))
 @pytest.mark.parametrize("pair,wild", [(False, False), (True, False),
                                        (False, True), (True, True)],
                          ids=["sbr", "pair", "sbr-wild", "pair-wild"])
 def test_kernel_source_on_the_host_is_the_plain_decoders(host_kernel, pair,
-                                                          wild,
+                                                          wild, seed,
                                                           monkeypatch):
     """``decode_rows``' CUDA route on CPU tensors, with the host build in
     place of the card's library: every output equal to the plain
@@ -159,12 +160,11 @@ def test_kernel_source_on_the_host_is_the_plain_decoders(host_kernel, pair,
     monkeypatch.setattr(torch.cuda, "device", lambda dev: trace.NO_SPAN)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 0}))
-    for seed in range(3):
-        sbr, ps = row_decoder_inputs(64, seed=1000 + 10 * seed + 2 * pair
-                                     + wild, pair=pair, wild=wild)
-        want = qwire_rows.decode_rows_plain(sbr, ps, pair)
-        before = dict(qwire_rows.launches)
-        got = qwire_rows._launch(sbr, ps, pair, torch.device("cpu"))
-        assert qwire_rows.launches == {**before, pair: before[pair] + 1}
-        for a, b in zip(leaves(got), leaves(want)):
-            assert a.dtype == b.dtype and torch.equal(a, b)
+    sbr, ps = row_decoder_inputs(64, seed=1000 + 10 * seed + 2 * pair + wild,
+                                 pair=pair, wild=wild)
+    want = qwire_rows.decode_rows_plain(sbr, ps, pair)
+    before = dict(qwire_rows.launches)
+    got = qwire_rows._launch(sbr, ps, pair, torch.device("cpu"))
+    assert qwire_rows.launches == {**before, pair: before[pair] + 1}
+    for a, b in zip(leaves(got), leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

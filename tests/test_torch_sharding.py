@@ -86,7 +86,7 @@ def test_sharded_decode_matches_golden_and_unsharded(case):
     pcm = outs[0]
     assert pcm.dtype == torch.int16 and pcm.device.type == "cpu"
     ref, ref_frames, ref_errors = unsharded(spec)
-    assert tuple(pcm.shape) == ref.shape == (FRAMES, dec.inner.L, 2, 2048)
+    assert tuple(pcm.shape) == ref.shape == (FRAMES, dec.L, 2, 2048)
     pcm = pcm.numpy().astype(np.int32)
     gold = golden()[f"pcm_{gold_case}"][:FRAMES]
     lanes = gold.shape[1]
@@ -104,10 +104,43 @@ def test_sharded_decode_matches_golden_and_unsharded(case):
     assert dec.audio_seconds() == pytest.approx(
         sum(ref_frames) * 2048 / 48000, rel=1e-12)
     if case.startswith("stereo"):
-        assert (dec.inner.MS, dec.inner.RP) == (1, 1)
+        assert (dec.MS, dec.RP) == (1, 1)
         assert lane_counts(dec) == [2, 4, 2, 4]
     if case.startswith("cce"):
         assert lane_counts(dec) == [0, 2, 0, 2, 0, 2, 0, 2]
+
+
+def test_sharded_decode_records_the_group_spans():
+    """The base class's group loop: five 3-frame streams in groups of two
+    over two CPU "devices" record group.parse (on the parse worker),
+    group.parse_wait, group.upload and group.scan once for every group,
+    each parse with its group's frames, and the K1 span once a frame on
+    each card."""
+    from heaac_tpu_torch.host import split_adts_stream
+    from heaac_tpu_torch.utils import trace
+    frames = 3
+    streams = [b"".join(split_adts_stream(d)[:frames])
+               for d in streams_of("he20", 5)]
+    dec = ShardedQwireDecoder(streams, devices=["cpu", "cpu"],
+                              group_streams=2)
+    with trace.recording() as rec:
+        outs = dec.decode()
+    assert [tuple(o.shape) for o in outs] == [(frames, 2, 2, 2048)] * 3
+    groups = {name: sorted(s.attrs["group"] for s in rec.spans
+                           if s.name == name)
+              for name in ("group.parse", "group.parse_wait",
+                           "group.upload", "group.scan")}
+    assert groups == {name: [0, 1, 2] for name in groups}
+    parse = [s for s in rec.spans if s.name == "group.parse"]
+    waits = [s for s in rec.spans if s.name == "group.parse_wait"]
+    assert {s.thread for s in parse}.isdisjoint({s.thread for s in waits})
+    assert sorted(s.attrs["frames"] for s in parse) == [frames, 2 * frames,
+                                                        2 * frames]
+    assert [s.attrs["steps"] for s in rec.spans
+            if s.name == "group.scan"] == [frames] * 3
+    # two cards of one lane a group: K1 once a frame on each
+    assert sum(s.name == "k1" for s in rec.spans) == 3 * 2 * frames
+    assert dec.frame_counts == [frames] * 5 and dec.error_count == 0
 
 
 def test_shard_bounds_never_split_a_stream():

@@ -10,14 +10,16 @@ carry after frame 8, stored there beside the PCM.
 Carries after each half: integers exactly, floats within 1e-4 of each
 tensor's peak (the graphs sum in other orders)."""
 import numpy as np
+import pytest
 
 from heaac_tpu.codec.batch import QwirePipelinedDecoder as JaxDecoder
 from heaac_tpu_torch.codec import heaac_graph
 from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
 from heaac_tpu_torch.codec.state import carry_from_numpy, carry_to_numpy
+from heaac_tpu_torch.host import split_adts_stream
 from test_torch_common import (  # noqa: F401 (autouse fixture)
     assert_tree_close, bench_streams, golden_tool, n, port_parse,
-    release_jax_memory, t)
+    release_jax_memory, streams_of, t)
 
 T, LANES = 8, 4
 TOL_LSB = 2
@@ -85,3 +87,48 @@ def test_heap_overflow_grows_and_retries():
     assert dec._cap > 2048
     np.testing.assert_array_equal(out, ref)
     assert dec.frame_counts == [4, 4]
+
+
+def test_groups_reuse_staging_with_a_short_stream():
+    """Five streams in groups of two, one of them a single frame long:
+    staging set 0 serves groups 0 and 2.  Every group's PCM equals that
+    group decoded alone by a fresh decoder, and the frame counts are
+    exact.  Group 0 parsed again into set 0, which then holds group 2's
+    full-length records, leaves silence records at the short stream's
+    lane after its one frame, not group 2's."""
+    bench = bench_streams(5)
+    short = split_adts_stream(bench[4])[0]
+    streams = bench[:4] + [short]
+    dec = QwirePipelinedDecoder(streams, group_streams=2, max_frames=4,
+                                device="cpu")
+    outs = [n(o) for o in dec.decode()]
+    assert [o.shape for o in outs] == [(4, 2, 2, 2048)] * 3
+    assert dec.frame_counts == [4, 4, 4, 4, 1]
+    pcm = dec.stream_pcm(dec.decode())
+    assert [tuple(p.shape) for p in pcm] == [(8192, 2)] * 4 + [(2048, 2)]
+    # length bucketing: the short stream first, the last group padded
+    # with a copy of its first stream
+    groups = [[short, bench[0]], bench[1:3], [bench[3], bench[3]]]
+    assert [dec.group_of[i] for i in (4, 0, 1, 2, 3)] == [0, 0, 1, 1, 2]
+    for g, group in enumerate(groups):
+        alone = QwirePipelinedDecoder(group, group_streams=2, max_frames=4,
+                                      device="cpu").decode()
+        np.testing.assert_array_equal(outs[g], n(alone[0]),
+                                      err_msg=f"group {g}")
+    recs = dec._buffers(0)[3]
+    lane = dec.slot_of[4] * dec.nl
+    assert not np.array_equal(recs[1:, lane], dec._sil_recs[1:, lane])
+    dec._parse_with_retry(0)
+    np.testing.assert_array_equal(recs[1:, lane], dec._sil_recs[1:, lane])
+    assert not np.array_equal(recs[0, lane], dec._sil_recs[0, lane])
+
+
+def test_another_band_mode_raises():
+    """A 34-band HE-AAC v2 stream in a batch whose stream 0 is 20-band:
+    the decode raises ValueError (decode_batch buckets them apart)."""
+    streams = streams_of("he20", 1) + streams_of("he34", 1)
+    dec = QwirePipelinedDecoder(streams, group_streams=2, max_frames=2,
+                                device="cpu")
+    assert dec.is34 == 0
+    with pytest.raises(ValueError, match="is34=1 in a batch of is34=0"):
+        dec.decode()

@@ -14,7 +14,8 @@ JAX package on the CPU (~15 min: each decoder compiles its own scan):
   {kind}/err_frames        its native compact parse's corrupt-frame
       count of each stream (kinds without an ASC);
   pipelined/pcm            its PipelinedStreamBatchDecoder over bench
-      streams 0-1 in one group, FRAMES frames (``/frame_counts``);
+      streams 0-1 in one group, FRAMES frames (``/frame_counts``); the
+      port has no counterpart, so no test reads it;
   batch_decoder_error_{i}  what its BatchDecoder(bench stream i,
       batch=2).warmup() raises: the JAX class tiles a frame's plans to
       [B, lanes, ...], which its frame graph refuses (a reference fault:
@@ -26,7 +27,7 @@ JAX package on the CPU (~15 min: each decoder compiles its own scan):
       native compact records of bench streams 0-1, first EXPAND_FRAMES
       frames: [EXPAND_FRAMES, 2, ...].
 
-tests/test_torch_plans.py, tests/test_torch_pipelined.py,
+tests/test_torch_plans.py, tests/test_torch_nojax.py,
 tests/test_torch_sharding.py and chip_smoke.py phase 13 read it.
 """
 import os
