@@ -482,21 +482,40 @@ class QwirePipelinedDecoder:
     def stream_pcm(self, outs) -> list:
         """``decode()``'s group tensors -> one CPU int16 tensor [n, ch]
         per stream, in input order: stereo for a mono core (PS), one
-        channel per output lane otherwise; coupling lanes are dropped."""
-        outs = [o.cpu() for o in outs]
-        lps = self.out_nl
-        res = []
-        for j in range(len(self.streams)):
-            # groups are length-bucketed: map through the sort permutation
-            pcm = outs[self.group_of[j]]
-            lane0 = self.slot_of[j] * self.nl
-            lanes = pcm[:self.frame_counts[j], lane0:lane0 + lps]
-            if lps == 1:                         # mono core -> stereo
-                res.append(lanes[:, 0].permute(0, 2, 1).reshape(-1, 2))
-            else:                                # one channel per lane
-                res.append(torch.stack(
-                    [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1))
-        return res
+        channel per output lane otherwise; coupling lanes are dropped.
+
+        Each group is put in stream-major order, output lanes only
+        ([G, Tg, N, ch]), by one copy on its own device; a card's group
+        then goes to page-locked host memory in one copy that does not
+        block, all of them waited on once.  Every stream is one
+        contiguous copy out of that into a pageable tensor of its own,
+        so no result shares storage with another or with a later call.
+        Counters ``pcm.d2h_copies`` / ``pcm.d2h_bytes``: the groups
+        copied off a card, and their bytes."""
+        lps, nl = self.out_nl, self.nl
+        hosts, events = [], []
+        for pcm in outs:
+            Tg, L, _, N = pcm.shape
+            slots = pcm.reshape(Tg, L // nl, nl, 2, N)
+            # mono core -> its lane's two channels; else channel 0 a lane
+            lanes = slots[:, :, 0] if lps == 1 else slots[:, :, :lps, 0]
+            sm = lanes.permute(1, 0, 3, 2).contiguous()   # [G, Tg, N, ch]
+            if sm.is_cuda:
+                host = torch.empty(sm.shape, dtype=sm.dtype, pin_memory=True)
+                host.copy_(sm, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(sm.device))
+                events.append(ev)
+                count("pcm.d2h_copies")
+                count("pcm.d2h_bytes", host.nbytes)
+                sm = host
+            hosts.append(sm)
+        for ev in events:
+            ev.synchronize()
+        # groups are length-bucketed: map through the sort permutation
+        return [hosts[self.group_of[j]][self.slot_of[j], :fc]
+                .flatten(0, 1).clone()
+                for j, fc in enumerate(self.frame_counts)]
 
     def _counts_in_input_order(self) -> None:
         """frame_counts, appended in parse order (``self.order``, padding

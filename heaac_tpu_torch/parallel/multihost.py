@@ -70,7 +70,7 @@ def decode_shard_and_reduce(streams_local, device="cuda",
 
     Spans: ``multihost.decode`` (attrs ``rank``, ``streams``,
     ``frames``: parse through the PCM on the host), under it
-    ``multihost.pcm`` (the copies to the host and the per-stream split),
+    ``multihost.pcm`` (the copy to the host and the per-stream split),
     then ``multihost.allreduce`` (the collective, with the wait for the
     slowest rank).  Counters ``multihost.calls``, ``multihost.streams``,
     ``multihost.frames`` (this process's)."""

@@ -19,7 +19,9 @@ scan's CUDA-graph replay of its frame step against the same frames
 stepped eagerly, chained scans, and the graph cache's second call; the
 qwire step's row-decoder kernel against the plain row decoders on fuzzed
 regions and on the regions real streams give, and ``decode_batch`` with
-and without it.
+and without it; the PCM's one copy a group off the card
+(``stream_pcm``) against its CPU split, and a first call's results
+after a second call.
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest   # on the GPU
 
@@ -542,3 +544,54 @@ def test_decode_batch_with_and_without_the_row_kernel(cuda, monkeypatch):
     for a, b in zip(got, want):
         assert a.shape == b.shape and int(a.abs().max()) > 1000
         assert torch.equal(a, b)
+
+
+def _owns_pageable_storage(p) -> bool:
+    st = p.untyped_storage()
+    return (st.nbytes() == p.numel() * p.element_size()
+            and not p.is_pinned() and p.device.type == "cpu")
+
+
+@pytest.mark.parametrize("kind,n", [("he20", 8), ("he_v1s", 4)])
+def test_stream_pcm_on_card_equals_its_cpu_split(cuda, kind, n):
+    """``stream_pcm`` of a card's groups (two, one stream cut to 3 of 8
+    frames) equals the CPU split of the same groups bit for bit; one
+    device-to-host copy a group, of the group's output lanes; every
+    result owns pageable storage of its own."""
+    streams = streams_of(kind, n)
+    streams[0] = b"".join(split_adts_stream(streams[0])[:3])
+    dec = QwirePipelinedDecoder(streams, group_streams=n // 2, max_frames=8,
+                                device=cuda)
+    outs = dec.decode()
+    before = trace.snapshot()
+    got = dec.stream_pcm(outs)
+    after = trace.snapshot()
+    want = dec.stream_pcm([o.cpu() for o in outs])
+    # mono core: both channels of lane 0; stereo: channel 0 of two lanes
+    nbytes = sum(o.shape[0] * dec.G * o.shape[-1] * 2 * 2 for o in outs)
+    assert len(outs) == 2
+    assert after["pcm.d2h_copies"] - before.get("pcm.d2h_copies", 0) == 2
+    assert after["pcm.d2h_bytes"] - before.get("pcm.d2h_bytes", 0) == nbytes
+    assert [p.shape[0] for p in got] == [3 * 2048] + [8 * 2048] * (n - 1)
+    for g, w in zip(got, want):
+        assert _owns_pageable_storage(g)
+        assert torch.equal(g, w)
+    assert len({p.untyped_storage().data_ptr() for p in got}) == n
+
+
+def test_decode_batch_results_survive_a_second_call(cuda):
+    """A second ``decode_batch`` call of the same shape (its page-locked
+    staging the first call's, from the host allocator's cache) leaves
+    the first call's results as they were."""
+    def cut(ds):
+        return [b"".join(split_adts_stream(d)[:8]) for d in ds]
+
+    he20 = streams_of("he20", 8)
+    first = decode_batch(cut(he20[:4]))
+    kept = [p.clone() for p in first]
+    second = decode_batch(cut(he20[4:]))
+    assert all(a.shape == b.shape and not torch.equal(a, b)
+               for a, b in zip(first, second))
+    for p, k in zip(first, kept):
+        assert _owns_pageable_storage(p)
+        assert torch.equal(p, k)

@@ -5,18 +5,22 @@ on streams 0-1 x 16 frames the port's CPU scan is within 2 int16 LSB of
 the JAX qwire scan's PCM in the committed golden
 (tests/data/heaac_v2_golden_jax.npz, which tests/test_torch_golden.py
 regenerates) — also when the port starts frames 8-15 from the JAX scan's
-carry after frame 8, stored there beside the PCM.
+carry after frame 8, stored there beside the PCM.  ``stream_pcm``'s
+per-stream split equals a plain formula bit for bit, and its results
+own their storage.
 
 Carries after each half: integers exactly, floats within 1e-4 of each
 tensor's peak (the graphs sum in other orders)."""
 import numpy as np
 import pytest
+import torch
 
 from heaac_tpu.codec.batch import QwirePipelinedDecoder as JaxDecoder
 from heaac_tpu_torch.codec import heaac_graph
 from heaac_tpu_torch.codec.batch import QwirePipelinedDecoder
 from heaac_tpu_torch.codec.state import carry_from_numpy, carry_to_numpy
 from heaac_tpu_torch.host import split_adts_stream
+from heaac_tpu_torch.utils import trace
 from test_torch_common import (  # noqa: F401 (autouse fixture)
     assert_tree_close, bench_streams, golden_tool, n, port_parse,
     release_jax_memory, streams_of, t)
@@ -132,3 +136,79 @@ def test_another_band_mode_raises():
     assert dec.is34 == 0
     with pytest.raises(ValueError, match="is34=1 in a batch of is34=0"):
         dec.decode()
+
+
+def _stream_pcm_plain(dec, outs) -> list:
+    """The per-stream split as a plain formula: each group copied to the
+    host whole, then each stream's lanes permuted and reshaped there."""
+    outs = [o.cpu() for o in outs]
+    lps = dec.out_nl
+    res = []
+    for j in range(len(dec.streams)):
+        pcm = outs[dec.group_of[j]]
+        lane0 = dec.slot_of[j] * dec.nl
+        lanes = pcm[:dec.frame_counts[j], lane0:lane0 + lps]
+        if lps == 1:                             # mono core -> stereo
+            res.append(lanes[:, 0].permute(0, 2, 1).reshape(-1, 2))
+        else:                                    # one channel per lane
+            res.append(torch.stack(
+                [lanes[:, k, 0].reshape(-1) for k in range(lps)], -1))
+    return res
+
+
+def _with_a_one_frame_stream(kind: str) -> list:
+    """Three streams of ``kind`` and the first frame of its stream 0:
+    in groups of two, the short stream shares a group with a full one
+    and the last group is padded."""
+    streams = streams_of(kind, 3)
+    return streams + [split_adts_stream(streams[0])[0]]
+
+
+@pytest.mark.parametrize("kind", ["he20", "he_v1s", "cce_after"])
+def test_stream_pcm_equals_the_plain_split(kind):
+    """Mono core with PS (stereo out), stereo HE-AAC v1 (two output
+    lanes) and a mono core with a coupling channel (its lane dropped):
+    every stream's PCM equals the plain split bit for bit, cut at its
+    own frame count."""
+    streams = _with_a_one_frame_stream(kind)
+    dec = QwirePipelinedDecoder(streams, group_streams=2, max_frames=3,
+                                device="cpu")
+    outs = dec.decode()
+    assert dec.frame_counts == [3, 3, 3, 1]
+    assert (dec.nl > dec.out_nl) == (kind == "cce_after")
+    got = dec.stream_pcm(outs)
+    want = _stream_pcm_plain(dec, outs)
+    assert [tuple(p.shape) for p in got] == [(3 * 2048, 2)] * 3 + [
+        (2048, 2)]
+    assert int(torch.stack([p[:2048] for p in got]).abs().max()) > 1000
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int16
+        assert torch.equal(g, w)
+
+
+def test_stream_pcm_results_own_their_storage():
+    """Every result owns a storage of its own bytes, none shared, none
+    page-locked; CPU groups make no device-to-host copy; a second call
+    leaves the first call's results as they were."""
+    streams = _with_a_one_frame_stream("he20")
+    dec = QwirePipelinedDecoder(streams, group_streams=2, max_frames=3,
+                                device="cpu")
+    outs = dec.decode()
+    before = trace.snapshot()
+    first = dec.stream_pcm(outs)
+    after = trace.snapshot()
+    for k in ("pcm.d2h_copies", "pcm.d2h_bytes"):
+        assert after.get(k, 0) == before.get(k, 0)
+    ptrs = set()
+    for p in first:
+        st = p.untyped_storage()
+        assert st.nbytes() == p.numel() * p.element_size()
+        assert p.storage_offset() == 0 and p.is_contiguous()
+        assert not p.is_pinned()
+        ptrs.add(st.data_ptr())
+    assert len(ptrs) == len(first)
+    kept = [p.clone() for p in first]
+    second = dec.stream_pcm([torch.zeros_like(o) for o in outs])
+    assert all(int(p.abs().max()) == 0 for p in second)
+    for p, k in zip(first, kept):
+        assert torch.equal(p, k)
