@@ -12,6 +12,7 @@ SMALL = {
                      "mix": {"check_streams": 4}},
     "v1s_stream_b1": {"mix": {"streams": 3, "frames": 4, "check_streams": 3,
                               "trace_streams": 1}},
+    "v1s_batch_256": {"mix": {"streams": 2, "check_streams": 2}},
 }
 
 
@@ -26,3 +27,17 @@ def run_cell(capsys, cell: str, trace: int = 0, root: str = ROOT,
     out = capsys.readouterr().out.strip().splitlines()
     assert rc == 0, out
     return json.loads(out[-1])
+
+
+def batch_data(monkeypatch) -> dict:
+    """A dict that the batch kind's runs fill with their per-layer data
+    (``Outcome.data``) as they return."""
+    from hebench.traffic import batch
+    data, real = {}, batch.run
+
+    def run(ctx):
+        out = real(ctx)
+        data.update(out.data)
+        return out
+    monkeypatch.setattr(batch, "run", run)
+    return data

@@ -6,7 +6,8 @@ import pytest
 from hebench.tools import control
 
 
-@pytest.mark.parametrize("cell", ["v2_batch_512", "v1s_stream_b1"])
+@pytest.mark.parametrize("cell", ["v2_batch_512", "v1s_stream_b1",
+                                  "v1s_batch_256"])
 def test_tf32_control_fails(cell, capsys):
     assert control.main(["--workload", cell, "--seeds", "3000000021",
                          "--streams", "2"]) == 0

@@ -19,7 +19,12 @@ from hebench.tests._cpu import run_cell
 
 def test_sound_runs_are_correct(capsys):
     assert run_cell(capsys, "v2_batch_512")["correct"] is True
-    assert run_cell(capsys, "v1s_stream_b1")["correct"] is True
+    line = run_cell(capsys, "v1s_stream_b1")
+    assert line["correct"] is True
+    assert set(line["metrics"]) == {"frame_p95_ms", "setup_s"}
+    line = run_cell(capsys, "v1s_batch_256")
+    assert line["correct"] is True
+    assert set(line["metrics"]) == {"realtime_x", "setup_s"}
 
 
 def _state_batch(monkeypatch):
@@ -76,9 +81,11 @@ def _half_batch(monkeypatch):
 @pytest.mark.parametrize("cell,fault", [
     ("v2_batch_512", _state_batch), ("v2_batch_512", _answer_batch),
     ("v2_batch_512", _half_batch), ("v1s_stream_b1", _state_single),
-    ("v1s_stream_b1", _answer_single)],
+    ("v1s_stream_b1", _answer_single), ("v1s_batch_256", _state_batch),
+    ("v1s_batch_256", _answer_batch), ("v1s_batch_256", _half_batch)],
     ids=["batch-state", "batch-answer", "batch-half", "single-state",
-         "single-answer"])
+         "single-answer", "stereo-batch-state", "stereo-batch-answer",
+         "stereo-batch-half"])
 def test_fault_is_not_correct(cell, fault, monkeypatch, capsys):
     torch.manual_seed(0)
     fault(monkeypatch)

@@ -71,6 +71,17 @@ def test_card_only_trace():
     assert tr.idle_gaps() == []
 
 
+def test_samples_per_frame():
+    """The batch kind's rows a frame: 2,048 where SBR doubles the core's
+    rate, 1,024 for an AAC-LC configuration (core rate = output rate)."""
+    from hebench.harness import load_json
+    from hebench.traffic.batch import samples_per_frame
+    v1s = load_json(ROOT, "hebench", "configs", "heaacv1_stereo_48k.json")
+    v2 = load_json(ROOT, "hebench", "configs", "heaacv2_48k.json")
+    assert samples_per_frame(v1s) == samples_per_frame(v2) == 2048
+    assert samples_per_frame(dict(v1s, core_rate=48000)) == 1024
+
+
 def test_k1_bounds():
     assert arith.k1_bytes(512, 30) == 16426040
     assert arith.k1_bound_s(512, 30) * 1e6 == pytest.approx(4.903, abs=5e-4)
@@ -105,6 +116,15 @@ def test_k1_reader():
     assert read(data) == pytest.approx(50.0, rel=1e-3)
     tr.dev_name = ["other_kernel"] * 2
     assert read(data) is None
+    assert read({}) is None
+
+
+def test_single_stream_rate_reader():
+    """The traced run's window rate: audio over wall, nothing without a
+    window."""
+    from hebench.harness import load_reader
+    read = load_reader(ROOT, "realtime_x.single")
+    assert read({"window_audio_s": 200.0, "window_wall_s": 50.0}) == 4.0
     assert read({}) is None
 
 

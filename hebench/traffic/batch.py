@@ -17,11 +17,16 @@ gaps; recording them stretches the call about 2.2x), both checked; then,
 with the harness's clock, the host parse alone of every group
 (``parse_walk``) and a whole decode with the streams already probed
 (``scan``), both through the decoder that ``decode_batch`` builds for
-this bucket (``QwirePipelinedDecoder`` with its own grouping).
+this bucket (``QwirePipelinedDecoder`` with its own grouping); left out
+where the traced call had an AAC-LC bucket, which that decoder does not
+serve.
 
 Mix parameters: ``invf_modes`` (the SBR writer's inverse filtering
-modes), ``check_streams``, ``limits``; ``streams`` (optional) in place
-of the configuration's count (the tests).
+modes), ``check_streams``, ``limits``; ``streams``, the streams a call,
+where the mix fixes them (a cell's own count, or a test's smaller one),
+else the configuration's.  Any configuration that ``decode_batch``
+decodes runs here: the samples a frame follow from its rates, and K1's
+inputs are handed to the readers only where it has PS (``ps_bands``).
 """
 from __future__ import annotations
 
@@ -34,7 +39,6 @@ from .. import harness
 from ..arith import K1_NAPB
 from ..gen import make_streams
 
-SPF = 2048                     # output samples a frame (SBR doubles 1024)
 # seconds into a traced run after which the call that only names the
 # idle gaps (~85 s at 512 streams: a stretched call, 3.6 million records
 # to read) is left out, so that a slow host still ends the run in 360 s
@@ -54,9 +58,15 @@ class _Stats(logging.Handler):
             self.records.append(st)
 
 
-def _expected_rows(streams: list) -> list:
+def samples_per_frame(cfg: dict) -> int:
+    """Output samples a frame: the core's 1024, times 2 where SBR
+    doubles the rate (every HE configuration), times 1 for AAC-LC."""
+    return 1024 * cfg["output_rate"] // cfg["core_rate"]
+
+
+def _expected_rows(streams: list, spf: int) -> list:
     from ..ref.bitstream.adts import split_adts_stream
-    return [len(split_adts_stream(s)) * SPF for s in streams]
+    return [len(split_adts_stream(s)) * spf for s in streams]
 
 
 def run(ctx: harness.Context) -> harness.Outcome:
@@ -67,12 +77,13 @@ def run(ctx: harness.Context) -> harness.Outcome:
 
     cfg, mix = ctx.config, ctx.mix
     dev = torch.device(ctx.device)
-    n = mix.get("streams", cfg["streams"])
+    n = mix["streams"] if "streams" in mix else cfg["streams"]
     t = time.perf_counter()
     streams = make_streams(ctx.root, cfg["generator"], n, ctx.seed,
                            mix["invf_modes"], ctx.workers)
     harness.log(f"streams: {n} made in {time.perf_counter() - t:.3f} s")
-    rows = _expected_rows(streams)
+    spf = samples_per_frame(cfg)
+    rows = _expected_rows(streams, spf)
     ch = cfg["output_channels"]
     rate = cfg["output_rate"]
     rng = np.random.default_rng(ctx.seed % (1 << 63))
@@ -141,15 +152,19 @@ def run(ctx: harness.Context) -> harness.Outcome:
                 traced[key] = round(data[key].window_s, 3)
                 if key == "trace":
                     data["steps"] = sum(r["steps"] for r in stats.records)
+                    qwire = all(r["key"][0] != "lc" for r in stats.records)
         finally:
             prog_log.removeHandler(stats)
             prog_log.setLevel(prev_level)
         tr = data["trace"]
         harness.log(f"traced calls: {traced} s, {audio:.3f} s of audio "
                     f"each; {tr.launches()} kernel launches")
-        data.update(k1_lane_frames=sum(rows) // SPF * cfg["core_channels"],
-                    k1_napb=K1_NAPB[cfg["ps_bands"]],
-                    **_parse_and_scan(streams, dev))
+        if "ps_bands" in cfg:
+            data.update(k1_lane_frames=sum(rows) // spf
+                        * cfg["core_channels"],
+                        k1_napb=K1_NAPB[cfg["ps_bands"]])
+        if qwire:
+            data.update(_parse_and_scan(streams, dev))
         e2e = {}
     peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" \
         else 0

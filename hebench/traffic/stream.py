@@ -14,10 +14,11 @@ the window's start to the end of its last call (decoder construction
 included).  The streams decoded whole in the window are the ones a
 sample drawn from the seed is checked from.
 
-``--trace 1``: after set-up, ``trace_streams`` whole streams with the
-card's activity alone profiled (the traced window: busy and idle shares,
-launches), then the same streams with the host's operations too (only
-to name the idle gaps); the PCM of both is checked.
+``--trace 1``: the same window (its audio and wall handed to the
+readers, for ``realtime_x.single``), then ``trace_streams`` whole
+streams with the card's activity alone profiled (the traced window:
+busy and idle shares, launches), then the same streams with the host's
+operations too (only to name the idle gaps); the PCM of all is checked.
 
 Mix parameters: ``streams`` (the pool), ``invf_modes`` (the SBR
 writer's inverse filtering modes), ``check_streams``, ``trace_streams``,
@@ -52,17 +53,10 @@ def run(ctx: harness.Context) -> harness.Outcome:
     harness.log(f"streams: {n} made in {time.perf_counter() - t:.3f} s")
     rate = cfg["output_rate"]
 
-    def play(i: int, times: list | None = None) -> np.ndarray:
+    def play(i: int) -> np.ndarray:
         fr = frames[i]
         dec = Decoder(adts_probe=fr[0][:7], device=dev)
-        out = []
-        for f in fr:
-            t = time.perf_counter()
-            pcm = dec.decode_frame(f)
-            if times is not None:
-                times.append(time.perf_counter() - t)
-            out.append(pcm.numpy())
-        return np.concatenate(out)
+        return np.concatenate([dec.decode_frame(f).numpy() for f in fr])
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -73,40 +67,45 @@ def run(ctx: harness.Context) -> harness.Outcome:
 
     whole: dict = {}                  # stream index -> its PCM copies
     data: dict = {}
-    e2e: dict = {}
-    if not ctx.trace:
-        times: list = []
-        audio = 0.0
-        w0 = time.perf_counter()
-        k = 0
-        done = False
-        while not done:
-            i = k % n
-            fr = frames[i]
-            dec = Decoder(adts_probe=fr[0][:7], device=dev)
-            out = []
-            for f in fr:
-                t = time.perf_counter()
-                pcm = dec.decode_frame(f)
-                times.append(time.perf_counter() - t)
-                out.append(pcm.numpy())
-                audio += pcm.shape[0] / rate
-                if time.perf_counter() - w0 >= ctx.seconds:
-                    done = True
-                    break
-            if len(out) == len(fr):
-                whole.setdefault(i, []).append(np.concatenate(out))
-            k += 1
-        wall = time.perf_counter() - w0
-        harness.log(f"window: {len(times)} frames of {k} streams, "
-                    f"{audio:.3f} s of audio in {wall:.3f} s; "
-                    f"frame p50 {percentile(times, 50) * 1e3:.3f} ms, "
-                    f"p95 over {len(times)} samples")
-        e2e = {"realtime_x": audio / wall,
-               "frame_p95_ms": percentile(times, 95) * 1e3,
-               "setup_s": setup_s}
-        attempted = len(times)
-    else:
+    times: list = []
+    audio = 0.0
+    w0 = time.perf_counter()
+    k = 0
+    done = False
+    walls: list = []                  # each stream's wall, for the log
+    while not done:
+        i = k % n
+        fr = frames[i]
+        s0 = time.perf_counter()
+        dec = Decoder(adts_probe=fr[0][:7], device=dev)
+        out = []
+        for f in fr:
+            t = time.perf_counter()
+            pcm = dec.decode_frame(f)
+            times.append(time.perf_counter() - t)
+            out.append(pcm.numpy())
+            audio += pcm.shape[0] / rate
+            if time.perf_counter() - w0 >= ctx.seconds:
+                done = True
+                break
+        walls.append(round(time.perf_counter() - s0, 3))
+        if len(out) == len(fr):
+            whole.setdefault(i, []).append(np.concatenate(out))
+        k += 1
+    wall = time.perf_counter() - w0
+    harness.log(f"window: {len(times)} frames of {k} streams, "
+                f"{audio:.3f} s of audio in {wall:.3f} s; "
+                f"frame p50 {percentile(times, 50) * 1e3:.3f} ms, "
+                f"p95 over {len(times)} samples, max "
+                f"{max(times) * 1e3:.3f} ms, "
+                f"{sum(x > 0.05 for x in times)} frames over 50 ms; "
+                f"streams {walls} s")
+    e2e = {"realtime_x": audio / wall,
+           "frame_p95_ms": percentile(times, 95) * 1e3,
+           "setup_s": setup_s}
+    data.update(window_audio_s=audio, window_wall_s=wall)
+    attempted = len(times)
+    if ctx.trace:
         from .. import devtrace
         m = mix["trace_streams"]
         for key, host_ops in (("trace", False), ("gap_trace", True)):
@@ -121,7 +120,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
                     f"{data['gap_trace'].window_s:.3f} s (host operations "
                     f"too); {tr.launches()} kernel launches")
         data["frames"] = nfr
-        attempted = 2 * nfr
+        attempted += 2 * nfr
     peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" \
         else 0
     rng = np.random.default_rng(ctx.seed % (1 << 63))
